@@ -1,0 +1,107 @@
+"""Typed job configuration: the `JobConfig` fields the sample sort reads.
+
+Counterpart of ``dsort_tpu/config.py``'s ``JobConfig``, cut to what the
+ported path reads.  Values the JAX package accepts but this package has not
+ported yet raise a clear "not yet ported" `ConfigError` instead of running
+something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+# Every value the JAX package accepts, and the subset ported here.
+_LOCAL_KERNELS = ("auto", "lax", "block", "bitonic", "pallas", "radix")
+_LOCAL_PORTED = ("auto", "lax", "block")
+_MERGE_KERNELS = ("auto", "sort", "bitonic", "block_merge")
+_MERGE_PORTED = ("auto", "sort", "block_merge")
+_EXCHANGES = ("alltoall", "ring", "fused", "hier")
+_EXCHANGE_PORTED = ("alltoall",)
+
+
+class ConfigError(ValueError):
+    """Raised for invalid or inconsistent configuration."""
+
+
+def _check_choice(name: str, value, known: tuple, ported: tuple) -> None:
+    if value not in known:
+        raise ConfigError(f"{name} must be one of {known}, got {value!r}")
+    if value not in ported:
+        raise ConfigError(
+            f"{name}={value!r} is not yet ported to dsort_tpu_torch "
+            f"(ported: {ported})"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class JobConfig:
+    """Per-job sort parameters.
+
+    - ``local_kernel``: per-shard sort; ``lax`` is ``torch.sort`` here,
+      ``block`` the block-bitonic CUDA kernels, ``auto`` picks ``block`` for
+      integer keys of at least 2^16 on a CUDA tensor (`ops.local_sort`);
+    - ``merge_kernel``: post-exchange combine; ``block_merge`` enters the
+      bitonic network at the run level, ``sort`` re-sorts flat, ``auto``
+      picks ``block_merge`` wherever the block kernel applies;
+    - ``oversample``: splitter candidates per shard;
+    - ``capacity_factor``: per-(src, dst) bucket headroom over n/P;
+    - ``max_capacity_retries``: measured-capacity retries after an overflow;
+    - ``exchange``: the bucket exchange; only ``alltoall`` is ported.
+    """
+
+    local_kernel: str = "auto"
+    merge_kernel: str = "auto"
+    exchange: str = "alltoall"
+    oversample: int = 32
+    capacity_factor: float = 1.3
+    max_capacity_retries: int = 3
+
+    def __post_init__(self) -> None:
+        _check_choice("local_kernel", self.local_kernel, _LOCAL_KERNELS, _LOCAL_PORTED)
+        _check_choice("merge_kernel", self.merge_kernel, _MERGE_KERNELS, _MERGE_PORTED)
+        _check_choice("exchange", self.exchange, _EXCHANGES, _EXCHANGE_PORTED)
+        if self.oversample < 1:
+            raise ConfigError(f"oversample must be >= 1, got {self.oversample}")
+        if self.capacity_factor < 1.0:
+            raise ConfigError(
+                f"capacity_factor must be >= 1.0, got {self.capacity_factor}"
+            )
+        if self.max_capacity_retries < 0:
+            raise ConfigError(
+                "max_capacity_retries must be >= 0, got "
+                f"{self.max_capacity_retries}"
+            )
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "JobConfig":
+        """Build this package's config from ``dataclasses.asdict`` of a
+        ``dsort_tpu`` ``JobConfig`` — how both packages run one sort with
+        identical settings.
+
+        Read: ``local_kernel``, ``merge_kernel``, ``exchange``,
+        ``oversample``, ``capacity_factor``, ``max_capacity_retries``.
+
+        Ignored (not read by the ported path yet): ``key_dtype`` (the input
+        array's dtype decides), ``payload_bytes``, ``hier_hosts``,
+        ``redundancy_mode``, ``max_reassign_attempts``, ``settle_delay_s``,
+        ``heartbeat_timeout_s``, ``compile_grace_s``,
+        ``max_transient_retries``, ``exec_allowance_floor_s``,
+        ``exec_allowance_keys_per_s``, ``checkpoint_dir``, ``tenant``,
+        ``flight_recorder_dir``, ``flight_ring_size``, ``explicit``.
+
+        Refused (they would change the reference's schedule): ``redundancy``
+        above 1 (the coded ring exchange) and ``autotune`` (the planner).
+        """
+        if int(d.get("redundancy", 1)) != 1:
+            raise ConfigError(
+                "redundancy > 1 (the coded ring exchange) is not yet ported "
+                "to dsort_tpu_torch"
+            )
+        if d.get("autotune", False):
+            raise ConfigError(
+                "autotune (the exchange planner) is not yet ported to "
+                "dsort_tpu_torch"
+            )
+        names = [f.name for f in dataclasses.fields(cls)]
+        return cls(**{k: d[k] for k in names if k in d})

@@ -1,0 +1,54 @@
+"""Partitioning: split a key array into per-worker shards.
+
+Counterpart of ``dsort_tpu/data/partition.py`` (numpy, host side): equal
+chunks with the remainder spread one extra element each over the first
+``total % num_workers`` workers, and the static ``(W, cap)`` layout plus
+per-shard counts the SPMD phases take.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from dsort_tpu_torch.ops.local_sort import sentinel_for
+
+
+def equal_partition(total: int, num_workers: int) -> list[int]:
+    """Chunk sizes per worker, the remainder on the first workers."""
+    if num_workers < 1:
+        raise ValueError("num_workers must be >= 1")
+    base, rem = divmod(total, num_workers)
+    return [base + (1 if i < rem else 0) for i in range(num_workers)]
+
+
+def partition(data: np.ndarray, num_workers: int) -> list[np.ndarray]:
+    """Split ``data`` into contiguous chunks per `equal_partition` sizes."""
+    sizes = equal_partition(len(data), num_workers)
+    out, off = [], 0
+    for s in sizes:
+        out.append(data[off : off + s])
+        off += s
+    return out
+
+
+def pad_to_shards(
+    data: np.ndarray, num_workers: int, multiple: int = 8, cap: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Lay ``data`` out as ``(num_workers, cap)`` + per-shard valid counts.
+
+    ``cap`` is the largest chunk rounded up to ``multiple``; pads hold the
+    dtype sentinel.  An explicit ``cap`` overrides the computed one.
+    """
+    sizes = equal_partition(len(data), num_workers)
+    if cap is None:
+        cap = -(-max(sizes + [1]) // multiple) * multiple
+    elif cap < max(sizes + [0]):
+        raise ValueError(f"cap {cap} < largest shard {max(sizes)}")
+    out = np.empty((num_workers, cap), dtype=data.dtype)
+    sent = sentinel_for(data.dtype)
+    off = 0
+    for i, s in enumerate(sizes):
+        out[i, :s] = data[off : off + s]
+        out[i, s:] = sent
+        off += s
+    return out, np.asarray(sizes, dtype=np.int32)

@@ -1,0 +1,29 @@
+"""Device resolution — the counterpart of ``dsort_tpu``'s ``_on_tpu()`` seam.
+
+Entry points run on the CUDA device unless the caller asks for the CPU
+(``device="cpu"``, as the tests do).  With no CUDA present and no explicit
+CPU request they raise: a sort never falls back to the CPU quietly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, ``cpu`` only
+    when asked.  Raises when CUDA is asked for (or defaulted to) but absent."""
+    if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU (the plain PyTorch versions of the kernels)"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,105 @@
+"""Order-preserving float <-> signed-int key bijection (NaN-safe sorting).
+
+Counterpart of ``dsort_tpu/ops/float_order.py``.  The reference maps float
+keys to same-width *unsigned* ints whose unsigned order is the float order
+(NaN -> all ones, negatives -> ``~bits``, positives -> ``bits | sign``).
+PyTorch has no ``minimum``, ``>>`` or ``searchsorted`` for ``uint32`` /
+``uint64``, so this package carries keys as *signed* ints: the reference's
+unsigned mapping followed by the sign-bit flip (the trick of
+``dsort_tpu/ops/block_sort.py``'s unsigned path).  Composed, the two are
+
+- NaN (any sign, any payload) -> the signed maximum, so NaNs sort last and
+  come back canonical (``np.nan``'s bits), one NaN out per NaN in;
+- negative floats -> ``bits ^ signed_max`` (more negative sorts first);
+- non-negative floats -> ``bits`` unchanged.
+
+-0.0 orders just before +0.0; ±0.0, ±inf and subnormals round-trip
+bit-exactly.  `unsigned_to_signed` / `signed_to_unsigned` are the plain
+sign-bit flip for unsigned integer keys.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_FLOAT_TO_INT = {
+    torch.float16: torch.int16,
+    torch.float32: torch.int32,
+    torch.float64: torch.int64,
+}
+_UNSIGNED_TO_SIGNED = {
+    torch.uint16: torch.int16,
+    torch.uint32: torch.int32,
+    torch.uint64: torch.int64,
+}
+
+
+def is_float_key_dtype(dtype) -> bool:
+    """True for key dtypes that need the ordered-int boundary mapping."""
+    return dtype in _FLOAT_TO_INT
+
+
+def _signed_max(dtype: torch.dtype) -> int:
+    return torch.iinfo(dtype).max
+
+
+def float_to_ordered_int(x: torch.Tensor) -> torch.Tensor:
+    """Map a float tensor to signed ints whose order is the float order."""
+    idt = _FLOAT_TO_INT.get(x.dtype)
+    if idt is None:
+        raise TypeError(f"not a float key dtype: {x.dtype}")
+    b = x.contiguous().view(idt)
+    top = _signed_max(idt)
+    m = torch.where(b < 0, b ^ top, b)
+    return torch.where(torch.isnan(x), torch.full_like(m, top), m)
+
+
+def ordered_int_to_float(m: torch.Tensor, float_dtype) -> torch.Tensor:
+    """Inverse of `float_to_ordered_int` (NaNs come back canonical)."""
+    idt = _FLOAT_TO_INT[float_dtype]
+    if m.dtype != idt:
+        # Value-casting keys that never went through the bijection would
+        # silently corrupt them: fail loudly instead.
+        raise TypeError(f"expected {idt} mapped keys, got {m.dtype}")
+    top = _signed_max(idt)
+    b = torch.where(m < 0, m ^ top, m)
+    out = b.contiguous().view(float_dtype)
+    nan = torch.full_like(out, float("nan"))
+    return torch.where(m == top, nan, out)
+
+
+def unsigned_to_signed(u: torch.Tensor) -> torch.Tensor:
+    """Order-preserving unsigned -> signed map: flip the sign bit."""
+    sdt = _UNSIGNED_TO_SIGNED.get(u.dtype)
+    if sdt is None:
+        raise TypeError(f"not an unsigned key dtype: {u.dtype}")
+    return u.contiguous().view(sdt) ^ torch.iinfo(sdt).min
+
+
+def signed_to_unsigned(s: torch.Tensor, unsigned_dtype) -> torch.Tensor:
+    """Inverse of `unsigned_to_signed`."""
+    sdt = _UNSIGNED_TO_SIGNED[unsigned_dtype]
+    if s.dtype != sdt:
+        raise TypeError(f"expected {sdt} mapped keys, got {s.dtype}")
+    return (s ^ torch.iinfo(sdt).min).contiguous().view(unsigned_dtype)
+
+
+def to_signed_keys(x: torch.Tensor) -> torch.Tensor:
+    """Any supported key tensor -> its signed carrier (identity for signed
+    ints, the sign flip for unsigned, the float bijection for floats)."""
+    if is_float_key_dtype(x.dtype):
+        return float_to_ordered_int(x)
+    if x.dtype in _UNSIGNED_TO_SIGNED:
+        return unsigned_to_signed(x)
+    if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool:
+        raise TypeError(f"unsupported key dtype {x.dtype}")
+    return x
+
+
+def from_signed_keys(s: torch.Tensor, dtype) -> torch.Tensor:
+    """Inverse of `to_signed_keys` for the original key ``dtype``."""
+    if is_float_key_dtype(dtype):
+        return ordered_int_to_float(s, dtype)
+    if dtype in _UNSIGNED_TO_SIGNED:
+        return signed_to_unsigned(s, dtype)
+    return s

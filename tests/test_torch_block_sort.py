@@ -1,0 +1,201 @@
+"""The port's block-bitonic sort against the JAX package's Pallas kernels.
+
+Same seeded numpy inputs through both: the JAX kernels run in the Pallas
+interpreter (as ``tests/test_block_sort.py`` runs them, small
+``tile_rows=8`` / ``block_rows=64`` tiles), the port's on ``device="cpu"``,
+where every wrapper takes its kernel's plain PyTorch version.  Sorting is
+exact, so every comparison is bit-for-bit equality.  The CUDA kernels
+themselves are held against the plain versions on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from dsort_tpu.ops import block_sort as jb
+from dsort_tpu_torch.ops import block_sort as tb
+from test_block_sort import _deep_interpret_ok
+
+# The JAX kernels' tile (rows=8 x 128 lanes) in keys.
+JAX_TILE = 8 * 128
+
+
+@pytest.fixture(scope="module")
+def deep():
+    """Skip exactly where the JAX suite skips its deep interpreter cases."""
+    if not _deep_interpret_ok():
+        pytest.skip("pallas interpreter on this jax cannot lower the deep "
+                    "cross/orbit kernels (MLIR i64 operand mismatch)")
+
+
+def _keys(rng, n, dtype):
+    """Random keys over the dtype's full range, with its extremes, -1 (or
+    1 for unsigned) and heavy duplicates mixed in."""
+    dtype = np.dtype(dtype)
+    info = np.iinfo(dtype)
+    x = rng.integers(info.min, info.max, n, dtype=dtype, endpoint=True)
+    special = np.array(
+        [info.min, info.max, 0, 1, -1 if info.min < 0 else 2], dtype=dtype
+    )
+    x[: n // 4] = rng.choice(special, n // 4)
+    rng.shuffle(x)
+    return x
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(f"u{a.dtype.itemsize}")
+
+
+def _alternating_runs(rng, n, run):
+    """n int32 keys as runs of ``run`` keys, even runs ascending, odd
+    descending — the input a merge level ``2*run`` expects."""
+    x = np.sort(rng.integers(-(2**31), 2**31, (n // run, run)).astype(np.int32), 1)
+    x[1::2] = x[1::2, ::-1]
+    return x.reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["random", "extremes"])
+def test_tile_sort_plain_matches_k1(case):
+    """tile_sort_plain(T=1024) == K1 `_tile_sort_cm(rows=8)`: 4 tiles,
+    alternately ascending and descending."""
+    rng = np.random.default_rng(1)
+    x = (rng.integers(-(2**31), 2**31, 4 * JAX_TILE).astype(np.int32)
+         if case == "random" else _keys(rng, 4 * JAX_TILE, np.int32))
+    (ref,) = jb._tile_sort_cm((jnp.asarray(x.reshape(-1, 128)),), 8, True)
+    out = tb.tile_sort_plain(torch.from_numpy(x.copy()).view(1, -1), JAX_TILE)
+    np.testing.assert_array_equal(out.numpy().reshape(-1), np.asarray(ref).reshape(-1))
+
+
+@pytest.mark.parametrize("k_start", [4, 64, 1024])
+def test_tile_sort_plain_k_start_matches_k1b(k_start):
+    """tile_sort_plain(k_start) == K1b `_sort_levels(rows=8, k_start)` on
+    alternately directed runs of k_start/2 keys."""
+    rng = np.random.default_rng(k_start)
+    x = _alternating_runs(rng, 4 * JAX_TILE, k_start // 2)
+    (ref,) = jb._sort_levels((jnp.asarray(x.reshape(-1, 128)),), 8, k_start, True, True)
+    out = tb.tile_sort_plain(torch.from_numpy(x.copy()).view(1, -1), JAX_TILE, k_start)
+    np.testing.assert_array_equal(out.numpy().reshape(-1), np.asarray(ref).reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+def test_block_sort_single_block_matches_jax(dtype):
+    """n=1000 (not a power of two) fits one JAX merge block."""
+    rng = np.random.default_rng(2)
+    x = _keys(rng, 1000, dtype)
+    ref = np.asarray(jb.block_sort(jnp.asarray(x), block_rows=64, tile_rows=8, interpret=True))
+    out = tb.block_sort(torch.from_numpy(x), tile=JAX_TILE).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    np.testing.assert_array_equal(out, np.sort(x))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64, np.uint64])
+def test_block_sort_deep_matches_jax(dtype, deep):
+    """n=9000 spans several JAX blocks: K1, K2a, K2/K2c and K2b/K3 all run
+    there; tile, global-stage and tile-merge all run here."""
+    rng = np.random.default_rng(3)
+    x = _keys(rng, 9000, dtype)
+    ref = np.asarray(jb.block_sort(jnp.asarray(x), block_rows=64, tile_rows=8, interpret=True))
+    out = tb.block_sort(torch.from_numpy(x), tile=JAX_TILE).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    np.testing.assert_array_equal(out, np.sort(x))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 129, 1024, 1025, 5000])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64, np.uint64])
+def test_block_sort_matches_numpy(n, dtype):
+    rng = np.random.default_rng(n)
+    x = _keys(rng, n, dtype)
+    out = tb.block_sort(torch.from_numpy(x), tile=256).numpy()
+    np.testing.assert_array_equal(out, np.sort(x))
+
+
+@pytest.mark.parametrize("value", [np.iinfo(np.int32).min, -1, 0, np.iinfo(np.int32).max])
+def test_block_sort_all_equal_keys(value):
+    x = np.full(3000, value, np.int32)
+    np.testing.assert_array_equal(tb.block_sort(torch.from_numpy(x), tile=256).numpy(), x)
+
+
+def test_block_sort_batched_rows_sort_independently():
+    rng = np.random.default_rng(4)
+    x = rng.integers(-50, 50, (5, 3000)).astype(np.int64)
+    out = tb.block_sort(torch.from_numpy(x), tile=512).numpy()
+    np.testing.assert_array_equal(out, np.sort(x, axis=1))
+
+
+def _sorted_runs(rng, r, l, dtype):
+    return np.sort(_keys(rng, r * l, dtype).reshape(r, l), axis=1)
+
+
+@pytest.mark.parametrize("dtype,r,l", [
+    (np.int32, 4, 1000), (np.uint32, 3, 700), (np.int64, 8, 512), (np.uint64, 8, 512),
+])
+def test_block_merge_runs_matches_jax(dtype, r, l):
+    rng = np.random.default_rng(r * 1000 + l)
+    runs = _sorted_runs(rng, r, l, dtype)
+    ref = np.asarray(jb.block_merge_runs(jnp.asarray(runs), block_rows=64, interpret=True))
+    out = tb.block_merge_runs(torch.from_numpy(runs), tile=JAX_TILE).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    np.testing.assert_array_equal(out, np.sort(runs.reshape(-1)))
+
+
+def test_block_merge_runs_deep_matches_jax(deep):
+    """8 runs of 4096: runs longer than a tile enter at the global stages."""
+    rng = np.random.default_rng(5)
+    runs = _sorted_runs(rng, 8, 4096, np.int32)
+    ref = np.asarray(jb.block_merge_runs(jnp.asarray(runs), block_rows=64, interpret=True))
+    out = tb.block_merge_runs(torch.from_numpy(runs), tile=JAX_TILE).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("r,l", [(1, 777), (2, 1), (7, 130), (8, 4096)])
+def test_block_merge_runs_matches_numpy(r, l):
+    rng = np.random.default_rng(r + l)
+    runs = _sorted_runs(rng, r, l, np.int64)
+    out = tb.block_merge_runs(torch.from_numpy(runs), tile=256).numpy()
+    np.testing.assert_array_equal(out, np.sort(runs.reshape(-1)))
+
+
+def test_block_merge_runs_batched():
+    """(B, R, L): each batch entry merges on its own (the post-exchange
+    shape, one entry per destination shard)."""
+    rng = np.random.default_rng(6)
+    runs = np.sort(rng.integers(-9, 9, (3, 8, 300)).astype(np.int32), axis=2)
+    out = tb.block_merge_runs(torch.from_numpy(runs), tile=256).numpy()
+    np.testing.assert_array_equal(out, np.sort(runs.reshape(3, -1), axis=1))
+
+
+def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-(2**31), 2**31, (2, 4096)).astype(np.int32))
+    tb.reset_launch_counts()
+    got = tb.bitonic_tile(x.clone(), 1024)
+    np.testing.assert_array_equal(got.numpy(), tb.tile_sort_plain(x.clone(), 1024).numpy())
+    got = tb.bitonic_global_stage(x.clone(), 4096, 1024)
+    np.testing.assert_array_equal(got.numpy(), tb.global_stage_plain(x.clone(), 4096, 1024).numpy())
+    got = tb.bitonic_tile_merge(x.clone(), 1024, 4096)
+    np.testing.assert_array_equal(got.numpy(), tb.tile_merge_plain(x.clone(), 1024, 4096).numpy())
+    assert tb.launch_counts() == dict.fromkeys(tb.WRAPPERS, 0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "row_len", "tile", "contiguous", "device", "k"])
+def test_wrappers_reject_what_the_kernels_do_not_take(bad):
+    x = torch.zeros((2, 4096), dtype=torch.int32)
+    call = lambda: tb.bitonic_tile(x, 1024)  # noqa: E731
+    if bad == "dtype":
+        x = x.to(torch.int16)
+    elif bad == "row_len":
+        x = torch.zeros((2, 3000), dtype=torch.int32)
+    elif bad == "tile":
+        call = lambda: tb.bitonic_tile(x, 16384)  # noqa: E731
+    elif bad == "contiguous":
+        x = torch.zeros((4096, 2), dtype=torch.int32).t()
+    elif bad == "device":
+        x = torch.zeros((2, 4096), dtype=torch.int32, device="meta")
+    else:
+        call = lambda: tb.bitonic_global_stage(x, 2048, 2048)  # noqa: E731
+    with pytest.raises((ValueError, TypeError)):
+        call()
