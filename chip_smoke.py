@@ -5,19 +5,28 @@
 
 Phases (any failure raises, so the exit code is non-zero):
 
-1. build the CUDA kernels from ``dsort_tpu_torch/csrc/`` (timed);
+1. build the CUDA kernels from ``dsort_tpu_torch/csrc/`` (one nvcc per
+   source, all started together; timed);
 2. hold each kernel bit-for-bit against its plain PyTorch version at the
-   main path's shapes, for int32 and int64 keys;
+   main path's shapes: the block kernels for int32 and int64 keys, keys
+   alone and with the int32 rank plane; the ring exchange kernel on the plan
+   of a 2^26 int32 sort (keys) and of a 2^23-record TeraSort sort (kv); the
+   payload gather with 92-byte rows;
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
-4. the main path, ``SampleSort(VirtualMesh(8)).sort`` under the default
-   ``auto`` kernels: 2^26 uniform int32 (launch counts reset just before and
-   read just after), 2^24 zipf int64 (must take the capacity retry), 2^20
-   float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line text file;
-   each output equal to numpy's;
+4. the main paths, each driven with the launch counts set to 0 just before
+   and read just after, each output checked against numpy:
+   ``SampleSort(VirtualMesh(8)).sort`` under the default ``alltoall`` at
+   2^26 uniform int32, 2^24 zipf int64 (must take the capacity retry) and
+   2^20 float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line file;
+   the same sort under ``ring`` and ``fused`` at 2^26 int32 and 2^24 zipf
+   int64 (no capacity retry, one exchange launch per fused sort);
+   ``sort_kv`` of 2^23 TeraSort records under all three exchanges, 2^22
+   zipf records under ``fused`` (record multiset per key), and ``cli
+   terasort`` on a 2^20-record file (byte-identical to numpy's order);
 5. timings at the main path's shapes: each kernel, its plain version and
-   the nearest torch call (``library_ms``), the bound, and the end-to-end
-   sort against torch.sort.
+   the nearest torch call (``library_ms``), the bound; the host-to-host
+   sorts under each exchange; records/s of ``sort_kv``; device traces.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -30,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -39,7 +49,10 @@ ROOT = Path(__file__).resolve().parent
 P = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores (data sheet)
-SOURCE = "dsort_tpu_torch/csrc/block_sort.cu"
+SOURCES = {
+    "block": "dsort_tpu_torch/csrc/block_sort.cu",
+    "ring": "dsort_tpu_torch/csrc/ring_exchange.cu",
+}
 REPLACES = {
     "bitonic_tile_kernel":
         "dsort_tpu/ops/block_sort.py:419 (K1 _tile_sort_cm_kernel), "
@@ -50,7 +63,13 @@ REPLACES = {
     "bitonic_tile_merge_kernel":
         "dsort_tpu/ops/block_sort.py:567 (K2a _span_low_kernel), "
         ":493 (K2b/K3 _span_tail_kernel)",
+    "ring_exchange_kernel": "dsort_tpu/ops/ring_kernel.py:280 (R1 _fused_ring_kernel)",
+    "ring_exchange_kernel+kv": "dsort_tpu/ops/ring_kernel.py:356 (R2 _fused_ring_kv_kernel)",
+    "gather_rows_kernel":
+        "dsort_tpu/ops/ring_kernel.py:356 (R2 _fused_ring_kv_kernel, in-kernel "
+        "payload placement :467-477)",
 }
+RANK = "+rank"
 
 
 def log(msg: str) -> None:
@@ -82,22 +101,23 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Median host wall time of ``fn()``, which ends in a device sync."""
+def host_times(fn, reps: int) -> list[float]:
+    """Host wall times (ms) of ``reps`` calls of ``fn()``, each ending in a
+    device sync."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return times
 
 
-def bound_ms(n: int, itemsize: int, compare_exchanges: int) -> tuple[float, str]:
-    """Least time for the work: each key read and written once over HBM, or
-    a min and a max per compare-exchange at the ALU peak, the larger."""
-    by_bytes = 2 * n * itemsize / HBM_BYTES_PER_S * 1e3
-    by_ops = 2 * compare_exchanges / ALU_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """Least time for the work: its bytes over HBM, or its operations at the
+    ALU peak, the larger."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ALU_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -124,14 +144,28 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     )
 
 
-def profile_sort(fn, card: str) -> None:
+class Journal:
+    """`Metrics` journal seam: keeps every event as ``(type, fields)``."""
+
+    def __init__(self):
+        self.events = []
+
+    def emit(self, etype, **fields):
+        self.events.append((etype, fields))
+        return types.SimpleNamespace(mono=time.monotonic())
+
+    def of(self, etype):
+        return [f for t, f in self.events if t == etype]
+
+
+def profile(fn, label: str, card: str) -> None:
     """One traced run of ``fn``: device time by kernel or copy, and the
     device's busy share of the wall time (torch.profiler over CUPTI)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -144,8 +178,8 @@ def profile_sort(fn, card: str) -> None:
             acc[1] += 1
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     busy = sum(ms for ms, _ in by_name.values())
-    log(f"trace SampleSort int32 n=2^26: wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of wall) [{card}]")
+    log(f"trace {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}% of wall) [{card}]")
     for name, (ms, count) in rows[:10]:
         log(f"  device {ms:9.3f} ms  x{count:<4d} {name[:90]}")
 
@@ -155,9 +189,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from dsort_tpu_torch import cli
+    from dsort_tpu_torch.data import ingest
+    from dsort_tpu_torch.data.partition import pad_kv_to_shards, pad_to_shards
     from dsort_tpu_torch.ops import _build
     from dsort_tpu_torch.ops import block_sort as tb
-    from dsort_tpu_torch.ops.float_order import float_to_ordered_int
+    from dsort_tpu_torch.ops import ring_kernel as rk
+    from dsort_tpu_torch.ops.float_order import float_to_ordered_int, to_signed_keys
+    from dsort_tpu_torch.parallel import exchange as ex
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort, cap_pair_policy
     from dsort_tpu_torch.utils.metrics import Metrics
@@ -172,17 +210,40 @@ def main() -> int:
     rng = np.random.default_rng(0)
     T = tb.TILE
 
+    def reset():
+        tb.reset_launch_counts()
+        rk.reset_launch_counts()
+
+    def counts():
+        return {**tb.launch_counts(), **rk.launch_counts()}
+
     # 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = _build.build()
     nvcc = "reused" if _build.last_build_s is None else f"nvcc {_build.last_build_s:.2f} s"
     _build.library()
-    log(f"build: {lib_path.name} {nvcc}, total with load {time.perf_counter() - t0:.2f} s")
+    log(f"build: {lib_path.name} ({len(_build.sources())} sources) {nvcc}, total with "
+        f"load {time.perf_counter() - t0:.2f} s")
 
     # 2. kernel vs plain at the main path's shapes ---------------------------
-    n32, n64 = 1 << 26, 1 << 24
+    n32, n64, nrec = 1 << 26, 1 << 24, 1 << 23
+    err: dict[str, float] = {}
+
+    def hold(name, label, kernel, plain):
+        """Run ``kernel`` and ``plain`` (each returning a tuple of tensors)
+        and require equal bits."""
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        e = 0.0
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{name} {label}: disagrees with its plain version")
+            if g.dtype != torch.uint8:
+                e = max(e, float((g.double() - w.double()).abs().max()))
+        log(f"check {name} {label}: bit-identical=True max_abs_err={e}")
+        err[name] = max(err.get(name, 0.0), e)
+
     shapes = {np.int32: (P, n32 // P), np.int64: (P, n64 // P)}
-    err = dict.fromkeys(tb.WRAPPERS, 0.0)
     for dtype, (rows, row_len) in shapes.items():
         x = torch.from_numpy(random_keys(rng, (rows, row_len), dtype)).to(dev)
         checks = [
@@ -200,16 +261,66 @@ def main() -> int:
              lambda t: tb.tile_merge_plain(t, T, row_len)),
         ]
         for name, kernel, plain in checks:
-            got, want = kernel(x.clone()), plain(x.clone())
-            torch.cuda.synchronize()
-            e = float((got.double() - want.double()).abs().max())
-            same = torch.equal(got, want)
-            log(f"check {name} {np.dtype(dtype).name} {rows}x{row_len}: "
-                f"bit-identical={same} max_abs_err={e}")
-            if not same:
-                raise AssertionError(f"{name} disagrees with its plain version")
-            err[name] = max(err[name], e)
-        del x, got, want
+            hold(name, f"{np.dtype(dtype).name} {rows}x{row_len}",
+                 lambda: (kernel(x.clone()),), lambda: (plain(x.clone()),))
+        del x
+
+    # The rank plane at the records merge shape: 8 rows of 8 slots x 2^18
+    # (the fused merge of 2^23 records), int64 and int32 keys, with ties.
+    kv_rows, kv_len = P, 1 << 21
+    for dtype in (np.int64, np.int32):
+        x = torch.from_numpy(random_keys(rng, (kv_rows, kv_len), dtype) % 4096).to(dev)
+        r = torch.randperm(kv_rows * kv_len, device=dev, dtype=torch.int32).view(kv_rows, kv_len)
+        rank_checks = [
+            ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, T, 2, q),
+             lambda t, q: tb.tile_sort_plain(t, T, 2, q)),
+            ("bitonic_global_stage_kernel",
+             lambda t, q: tb.bitonic_global_stage(t, kv_len, kv_len // 2, q),
+             lambda t, q: tb.global_stage_plain(t, kv_len, kv_len // 2, q)),
+            ("bitonic_tile_merge_kernel", lambda t, q: tb.bitonic_tile_merge(t, T, kv_len, q),
+             lambda t, q: tb.tile_merge_plain(t, T, kv_len, q)),
+        ]
+        for name, kernel, plain in rank_checks:
+            def run(fn):
+                t, q = x.clone(), r.clone()
+                fn(t, q)
+                return t, q
+            hold(name + RANK, f"{np.dtype(dtype).name} {kv_rows}x{kv_len} + int32 rank",
+                 lambda: run(kernel), lambda: run(plain))
+        del x, r
+
+    mesh = VirtualMesh(P)
+    x32 = random_keys(rng, n32, np.int32)
+    shards, cnt = pad_to_shards(x32, P)
+    xs_plan, split, hist = ex._ring_plan_shard(
+        to_signed_keys(torch.from_numpy(shards).to(dev)), torch.from_numpy(cnt).to(dev),
+        mesh=mesh, oversample=32, kernel="auto",
+    )
+    caps32 = ex.ring_caps(hist.cpu().numpy(), shards.shape[1], P)
+    starts32, lens32 = ex._bucket_bounds(xs_plan, torch.from_numpy(cnt).to(dev), split)
+    hold("ring_exchange_kernel", f"keys, plan of 2^26 int32 (caps {caps32})",
+         lambda: rk.ring_exchange(xs_plan, starts32, lens32, caps32)[:1],
+         lambda: rk.ring_exchange_plain(xs_plan, starts32, lens32, caps32)[:1])
+
+    tk, tv = ingest.gen_terasort(nrec, seed=1)
+    sk, sv, kcnt = pad_kv_to_shards(tk, tv, P)
+    kcnt_d = torch.from_numpy(kcnt).to(dev)
+    ks_plan, vs_plan, ksplit, khist = ex._ring_plan_kv_shard(
+        to_signed_keys(torch.from_numpy(sk).to(dev)), torch.from_numpy(sv).to(dev), kcnt_d,
+        mesh=mesh, oversample=32,
+    )
+    caps_kv = ex.ring_caps(khist.cpu().numpy(), sk.shape[1], P)
+    kstarts, klens = ex._bucket_bounds(ks_plan, kcnt_d, ksplit)
+    hold("ring_exchange_kernel+kv", f"kv, plan of 2^23 records (caps {caps_kv})",
+         lambda: rk.ring_exchange(ks_plan, kstarts, klens, caps_kv, vs_plan),
+         lambda: rk.ring_exchange_plain(ks_plan, kstarts, klens, caps_kv, vs_plan))
+    wk, wt, wv = rk.ring_exchange(ks_plan, kstarts, klens, caps_kv, vs_plan)
+    tb.merge_alternating_runs(wk, rk._slot_len(caps_kv), wt)
+    total_kv = sum(caps_kv)
+    tags = wt[:, :total_kv]
+    hold("gather_rows_kernel", f"{tuple(wv.shape)} uint8 rows by merged tags",
+         lambda: (rk.gather_rows(wv, tags),), lambda: (rk.gather_rows_plain(wv, tags),))
+    del wk
 
     # 3. whole sorts against torch.sort ---------------------------------------
     for dtype, n in ((np.int32, 1 << 24), (np.int32, n32), (np.int64, n64)):
@@ -224,33 +335,43 @@ def main() -> int:
     log(f"block_merge_runs {P}x{P}x{cap} int32: equal to torch.sort")
     del x, runs
 
-    # 4. the main path ----------------------------------------------------------
-    mesh = VirtualMesh(P)
+    # 4. the main paths ---------------------------------------------------------
     ss = SampleSort(mesh)
+    ring_kernels = {"ring_exchange_kernel"}
+    kv_fused = {"ring_exchange_kernel+kv", "gather_rows_kernel"}
+    keys_path = set(tb.WRAPPERS)
+    kv_merge = {"bitonic_global_stage_kernel" + RANK, "bitonic_tile_merge_kernel" + RANK}
 
-    def drive(label, data, reference, metrics=None):
-        tb.reset_launch_counts()
+    def launched(label, need):
+        got = counts()
+        missing = sorted(k for k in need if not got[k])
+        if missing:
+            raise AssertionError(f"{label}: kernels of the path not launched: {missing} {got}")
+        return {k: v for k, v in got.items() if v}
+
+    def drive(label, data, reference, metrics=None, exchange=None):
+        need = keys_path | (ring_kernels if exchange == "fused" else set())
+        reset()
         t0 = time.perf_counter()
-        out = ss.sort(data, metrics)
+        out = ss.sort(data, metrics, exchange=exchange)
         wall = time.perf_counter() - t0
-        counts = tb.launch_counts()
+        got = launched(label, need)
         if not same_bits(out, reference):
             raise AssertionError(f"{label}: output differs from numpy")
-        if not all(counts.values()):
-            raise AssertionError(f"{label}: a kernel was not launched: {counts}")
-        log(f"main {label}: equal to numpy, {wall * 1e3:.1f} ms wall, launches {counts}")
+        log(f"main {label}: equal to numpy, {wall * 1e3:.1f} ms wall, launches {got}")
         keys = data
         if data.dtype.kind == "f":  # sort_ranges takes the mapped keys
             keys = float_to_ordered_int(torch.from_numpy(data)).numpy()
-        log(f"  per-shard counts {[len(r) for r in ss.sort_ranges(keys)]}")
-        return counts
+        log(f"  per-shard counts {[len(r) for r in ss.sort_ranges(keys, exchange=exchange)]}")
+        return got
 
-    x32 = random_keys(rng, n32, np.int32)
-    main_launches = drive("uniform int32 n=2^26", x32, np.sort(x32))
+    ref32 = np.sort(x32)
+    main_launches = drive("uniform int32 n=2^26", x32, ref32)
 
     z = np.minimum(rng.zipf(1.3, n64), np.iinfo(np.int64).max).astype(np.int64)
+    refz = np.sort(z)
     m = Metrics()
-    drive("zipf(1.3) int64 n=2^24", z, np.sort(z), m)
+    drive("zipf(1.3) int64 n=2^24", z, refz, m)
     retries = m.counters.get("capacity_retries", 0)
     log(f"  capacity_retries={retries}")
     if retries < 1:
@@ -269,66 +390,218 @@ def main() -> int:
     xt = random_keys(rng, 10**6, np.int32)
     src, dst = work / "input.txt", work / "output.txt"
     src.write_text("".join(f"{v}\n" for v in xt.tolist()))
-    tb.reset_launch_counts()
+    reset()
     t0 = time.perf_counter()
     if cli.main(["run", str(src), "-o", str(dst)]) != 0:
         raise AssertionError("cli run failed")
     wall = time.perf_counter() - t0
-    counts = tb.launch_counts()
+    got = launched("cli run", keys_path)
     if dst.read_bytes() != "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode():
         raise AssertionError("cli output differs from the numpy-formatted sorted file")
-    if not all(counts.values()):
-        raise AssertionError(f"cli run: a kernel was not launched: {counts}")
-    log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, launches {counts}")
+    log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, launches {got}")
 
-    # 5. timings at the main path's shapes (int32, 2^26 keys) -----------------
+    # Keys through the ring: no retry, one exchange launch per fused sort.
+    ring_launches = {}
+    for label, data, ref in (("uniform int32 n=2^26", x32, ref32),
+                             ("zipf(1.3) int64 n=2^24", z, refz)):
+        for exchange in ("ring", "fused"):
+            m = Metrics(journal=Journal())
+            got = drive(f"{label} exchange={exchange}", data, ref, m, exchange)
+            if m.counters.get("capacity_retries", 0):
+                raise AssertionError(f"{label} {exchange}: capacity retry on the ring")
+            if exchange == "fused" and (
+                m.counters["fused_exchange_launches"] != 1 or got["ring_exchange_kernel"] != 1
+            ):
+                raise AssertionError(f"{label}: not one exchange launch per fused sort")
+            caps = [e["cap"] for e in m.journal.of("exchange_step")]
+            skew = m.journal.of("skew_report")[0]
+            log(f"  plan caps (steps 1..7) {caps}, skew max_mean_ratio "
+                f"{skew['max_mean_ratio']}, counters {dict(m.counters)}")
+            if exchange == "fused" and label.startswith("uniform"):
+                ring_launches = got
+
+    # Records: 2^23 TeraSort records under every exchange.
+    if len(np.unique(tk)) != nrec:
+        raise AssertionError("the 8-byte prefixes of the 2^23 records are not unique")
+    order = np.argsort(tk, kind="stable")
+    ref_k, ref_v = tk[order], tv[order]
+    outs = {}
+    kv_launches = {}
+    for exchange in ("alltoall", "ring", "fused"):
+        need = kv_merge | (kv_fused if exchange == "fused" else set())
+        reset()
+        m = Metrics()
+        t0 = time.perf_counter()
+        ok, ov = ss.sort_kv(tk, tv, m, exchange=exchange)
+        wall = time.perf_counter() - t0
+        got = launched(f"sort_kv {exchange}", need)
+        if not (np.array_equal(ok, ref_k) and np.array_equal(ov, ref_v)):
+            raise AssertionError(f"sort_kv {exchange}: records differ from numpy's order")
+        outs[exchange] = ov
+        log(f"main sort_kv 2^23 TeraSort records exchange={exchange}: keys equal np.sort, "
+            f"payloads equal the stable argsort order, {wall * 1e3:.1f} ms wall, "
+            f"counters {dict(m.counters)}, launches {got}")
+        if exchange == "fused":
+            kv_launches = got
+    if not np.array_equal(outs["ring"], outs["fused"]):
+        raise AssertionError("ring and fused payloads differ")
+    del outs
+
+    # 2^22 zipf records (repeated keys) under fused: the record multiset of
+    # every key, through an index stamped into the first 8 payload bytes.
+    nz = 1 << 22
+    zk = rng.zipf(1.3, nz).astype(np.uint64)
+    zv = rng.integers(0, 256, (nz, 92), dtype=np.uint8)
+    zv[:, :8] = np.arange(nz, dtype=np.uint64).view(np.uint8).reshape(nz, 8)
+    reset()
+    ok, ov = ss.sort_kv(zk, zv, exchange="fused")
+    launched("sort_kv zipf fused", kv_merge | kv_fused)
+    idx = np.ascontiguousarray(ov[:, :8]).view(np.uint64).reshape(-1)
+    if not (np.array_equal(np.sort(idx), np.arange(nz, dtype=np.uint64))
+            and np.array_equal(zk[idx], ok) and np.array_equal(zv[idx], ov)
+            and np.array_equal(ok, np.sort(zk))):
+        raise AssertionError("zipf records: a record moved away from its key")
+    log(f"main sort_kv 2^22 zipf(1.3) uint64 records exchange=fused: keys equal np.sort, "
+        f"every record kept with its key ({len(np.unique(zk))} distinct keys)")
+
+    # The TeraSort job: cli terasort on 2^20 records.
+    ck, cv = ingest.gen_terasort(1 << 20, seed=2)
+    ck[::5] = ck[0]  # shared prefixes: the secondary key decides
+    tsrc, tdst = work / "tera_in.bin", work / "tera_out.bin"
+    ingest.write_terasort_file(tsrc, ck, cv)
+    t0 = time.perf_counter()
+    if cli.main(["terasort", str(tsrc), "-o", str(tdst)]) != 0:
+        raise AssertionError("cli terasort failed")
+    wall = time.perf_counter() - t0
+    raw = np.fromfile(tsrc, np.uint8).reshape(-1, ingest.RECORD_BYTES)
+    if tdst.read_bytes() != raw[np.lexsort((ingest.terasort_secondary(cv), ck))].tobytes():
+        raise AssertionError("cli terasort output differs from numpy's 10-byte order")
+    log(f"main cli terasort 2^20 records: byte-identical to np.lexsort order, "
+        f"{wall * 1e3:.1f} ms wall")
+
+    # 5. timings at the main path's shapes ------------------------------------
     rows, row_len = shapes[np.int32]
     n = rows * row_len
     x = torch.from_numpy(random_keys(rng, (rows, row_len), np.int32)).to(dev)
     log_t = T.bit_length() - 1
     stages_tile = log_t * (log_t + 1) // 2  # levels 2..T, log2(k) stages each
-    timed = {
-        "bitonic_tile_kernel": (
-            lambda: tb.bitonic_tile(x, T), lambda: tb.tile_sort_plain(x, T),
-            lambda: torch.sort(x.view(-1, T), dim=-1), n // 2 * stages_tile,
-        ),
-        "bitonic_global_stage_kernel": (
-            lambda: tb.bitonic_global_stage(x, row_len, row_len // 2),
-            lambda: tb.global_stage_plain(x, row_len, row_len // 2), None, n // 2,
-        ),
-        "bitonic_tile_merge_kernel": (
-            lambda: tb.bitonic_tile_merge(x, T, row_len),
-            lambda: tb.tile_merge_plain(x, T, row_len), None,
-            n // 2 * log_t,
-        ),
-    }
     kernels = []
-    for name, (kernel, plain, library, cmpx) in timed.items():
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=5, warmup=1)
+
+    def entry(name, source, launches, kernel, plain, library, nbytes, ops, label):
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
         library_ms = cuda_ms(library) if library is not None else None
-        b_ms, b_by = bound_ms(n, 4, cmpx)
+        b_ms, b_by = bound_ms(nbytes, ops)
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": main_launches[name], "max_abs_err": err[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library_ms,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name.removesuffix(RANK)], "launches": launches,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
         })
-        log(f"time {name} int32 {rows}x{row_len}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        log(f"time {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+
+    entry("bitonic_tile_kernel", SOURCES["block"], main_launches["bitonic_tile_kernel"],
+          lambda: tb.bitonic_tile(x, T), lambda: tb.tile_sort_plain(x, T),
+          lambda: torch.sort(x.view(-1, T), dim=-1), 2 * n * 4, n * stages_tile,
+          f"int32 {rows}x{row_len}")
+    entry("bitonic_global_stage_kernel", SOURCES["block"],
+          main_launches["bitonic_global_stage_kernel"],
+          lambda: tb.bitonic_global_stage(x, row_len, row_len // 2),
+          lambda: tb.global_stage_plain(x, row_len, row_len // 2), None, 2 * n * 4, n,
+          f"int32 {rows}x{row_len}")
+    entry("bitonic_tile_merge_kernel", SOURCES["block"],
+          main_launches["bitonic_tile_merge_kernel"],
+          lambda: tb.bitonic_tile_merge(x, T, row_len),
+          lambda: tb.tile_merge_plain(x, T, row_len), None, 2 * n * 4, n * log_t,
+          f"int32 {rows}x{row_len}")
+    # K1b: the tile kernel entered at k_start = 512 (runs of 256 merged up to
+    # the tile), as block_merge_runs does for runs shorter than a tile.
+    k1b_ms = cuda_ms(lambda: tb.bitonic_tile(x, T, 512))
+    k1b_plain = cuda_ms(lambda: tb.tile_sort_plain(x, T, 512), reps=3, warmup=1)
+    k1b_stages = sum(range(10, log_t + 1))  # levels 512..T
+    k1b_bound, k1b_by = bound_ms(2 * n * 4, n * k1b_stages)
+    log(f"time bitonic_tile_kernel k_start=512 (K1b) int32 {rows}x{row_len}: {k1b_ms:.4f} ms, "
+        f"plain {k1b_plain:.4f} ms, bound {k1b_bound:.4f} ms ({k1b_by}) [{card}]")
+    del x
+
+    xk = torch.from_numpy(random_keys(rng, (kv_rows, kv_len), np.int64) % 4096).to(dev)
+    rq = torch.randperm(kv_rows * kv_len, device=dev, dtype=torch.int32).view(kv_rows, kv_len)
+    nk = kv_rows * kv_len
+    ktile_ms = cuda_ms(lambda: tb.bitonic_tile(xk, T, 2, rq))
+    ktile_plain = cuda_ms(lambda: tb.tile_sort_plain(xk, T, 2, rq), reps=3, warmup=1)
+    ktile_bound, ktile_by = bound_ms(2 * nk * 12, nk * stages_tile)
+    log(f"time bitonic_tile_kernel{RANK} int64+int32 {kv_rows}x{kv_len}: {ktile_ms:.4f} ms, "
+        f"plain {ktile_plain:.4f} ms, bound {ktile_bound:.4f} ms ({ktile_by}) (not on the "
+        f"records path at this size) [{card}]")
+    entry("bitonic_global_stage_kernel" + RANK, SOURCES["block"],
+          kv_launches["bitonic_global_stage_kernel" + RANK],
+          lambda: tb.bitonic_global_stage(xk, kv_len, kv_len // 2, rq),
+          lambda: tb.global_stage_plain(xk, kv_len, kv_len // 2, rq), None, 2 * nk * 12, nk,
+          f"int64+int32 rank {kv_rows}x{kv_len}")
+    entry("bitonic_tile_merge_kernel" + RANK, SOURCES["block"],
+          kv_launches["bitonic_tile_merge_kernel" + RANK],
+          lambda: tb.bitonic_tile_merge(xk, T, kv_len, rq),
+          lambda: tb.tile_merge_plain(xk, T, kv_len, rq), None, 2 * nk * 12, nk * log_t,
+          f"int64+int32 rank {kv_rows}x{kv_len}")
+    del xk, rq
+
+    real32 = int(lens32.sum())
+    entry("ring_exchange_kernel", SOURCES["ring"], ring_launches["ring_exchange_kernel"],
+          lambda: rk.ring_exchange(xs_plan, starts32, lens32, caps32),
+          lambda: rk.ring_exchange_plain(xs_plan, starts32, lens32, caps32), None,
+          (real32 + P * sum(caps32)) * 4, 0, f"keys, plan of 2^26 int32 (no one torch call)")
+    row_b = tv.shape[1]
+    entry("ring_exchange_kernel+kv", SOURCES["ring"], kv_launches["ring_exchange_kernel+kv"],
+          lambda: rk.ring_exchange(ks_plan, kstarts, klens, caps_kv, vs_plan),
+          lambda: rk.ring_exchange_plain(ks_plan, kstarts, klens, caps_kv, vs_plan), None,
+          nrec * (8 + row_b) + P * total_kv * (8 + 4 + row_b), 0,
+          f"kv, plan of 2^23 records (no one torch call)")
+    flat_rows = wv.view(-1, row_b)
+    flat_idx = (torch.where(tags < total_kv, tags, 0).long()
+                + torch.arange(P, device=dev).unsqueeze(1) * total_kv).view(-1)
+    entry("gather_rows_kernel", SOURCES["ring"], kv_launches["gather_rows_kernel"],
+          lambda: rk.gather_rows(wv, tags), lambda: rk.gather_rows_plain(wv, tags),
+          lambda: flat_rows.index_select(0, flat_idx),
+          2 * P * total_kv * row_b + P * total_kv * 4, 0,
+          f"{tuple(wv.shape)} uint8, library torch.index_select")
+    del wv, wt, tags, flat_rows, flat_idx, vs_plan, ks_plan
+
     xf = torch.from_numpy(x32).to(dev)
     bs_ms = cuda_ms(lambda: tb.block_sort(xf), reps=5)
     ts_ms = cuda_ms(lambda: torch.sort(xf), reps=5)
-    e2e_ms = host_ms(lambda: ss.sort(x32))
     log(f"time block_sort int32 n=2^26: {bs_ms:.3f} ms ({n32 / bs_ms / 1e6:.3f} Gkeys/s), "
         f"torch.sort {ts_ms:.3f} ms ({n32 / ts_ms / 1e6:.3f} Gkeys/s) [{card}]")
-    log(f"time SampleSort(VirtualMesh(8)).sort int32 n=2^26 host-to-host: {e2e_ms:.3f} ms "
-        f"({n32 / e2e_ms / 1e6:.3f} Gkeys/s), library_ms (torch.sort on device) "
-        f"{ts_ms:.3f} ms [{card}]")
+    del xf
+    def by_exchange(label, run, unit, scale):
+        """Host-to-host time of ``run(exchange)`` per exchange, in turns
+        (A, B, C, C, B, A; two runs each), so drift hits all three alike."""
+        parts = []
+        for exchange in ("alltoall", "ring", "fused", "fused", "ring", "alltoall"):
+            parts += [(exchange, t) for t in host_times(lambda: run(exchange), 2)]
+        for exchange in ("alltoall", "ring", "fused"):
+            ts = [t for e, t in parts if e == exchange]
+            ms = float(np.median(ts))
+            log(f"time {label} exchange={exchange} host-to-host: {ms:.3f} ms median of "
+                f"{len(ts)} ({scale / ms:.3f} {unit}; runs {[round(t, 3) for t in ts]}) [{card}]")
+
+    by_exchange("SampleSort(VirtualMesh(8)).sort int32 n=2^26",
+                lambda e: ss.sort(x32, exchange=e), "Gkeys/s", n32 / 1e6)
+    by_exchange("SampleSort(VirtualMesh(8)).sort zipf(1.3) int64 n=2^24",
+                lambda e: ss.sort(z, exchange=e), "Gkeys/s", n64 / 1e6)
+    log(f"  library_ms (torch.sort of 2^26 int32 on device) {ts_ms:.3f} ms [{card}]")
+    by_exchange("SampleSort(VirtualMesh(8)).sort_kv 2^23 records",
+                lambda e: ss.sort_kv(tk, tv, exchange=e), "Mrec/s", nrec / 1e3)
 
     m = Metrics()
     ss.sort(x32, m)
-    log(f"phases SampleSort int32 n=2^26: {json.dumps(m.summary())} [{card}]")
-    profile_sort(lambda: ss.sort(x32), card)
+    log(f"phases SampleSort int32 n=2^26 alltoall: {json.dumps(m.summary())} [{card}]")
+    for exchange in ("alltoall", "fused"):
+        m = Metrics()
+        ss.sort_kv(tk, tv, m, exchange=exchange)
+        log(f"phases sort_kv 2^23 records {exchange}: {json.dumps(m.summary())} [{card}]")
+    profile(lambda: ss.sort(x32), "SampleSort int32 n=2^26 alltoall", card)
+    profile(lambda: ss.sort(x32, exchange="fused"), "SampleSort int32 n=2^26 fused", card)
+    profile(lambda: ss.sort_kv(tk, tv, exchange="fused"), "sort_kv 2^23 records fused", card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,13 @@
-"""Command line: ``python -m dsort_tpu_torch.cli run INPUT -o OUTPUT``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,terasort} ...``.
 
-Counterpart of ``dsort run`` in the default SPMD mode: read one int per
-line, sort with `SampleSort` over a `VirtualMesh` of ``--workers`` shards,
-write one int per line.  Runs on the GPU unless ``--device cpu``.
+Counterparts of ``dsort run`` in the default SPMD mode and of the in-core
+``dsort terasort``, sorting with `SampleSort` over a `VirtualMesh` of
+``--workers`` shards on the GPU unless ``--device cpu``:
+
+- ``run INPUT -o OUTPUT [--exchange E]``: one int per line in and out;
+- ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records,
+  ordered by the full 10-byte key (8-byte prefix, then key bytes 8-9 as
+  the secondary key — which keeps the ``alltoall`` exchange).
 """
 
 from __future__ import annotations
@@ -10,26 +15,46 @@ from __future__ import annotations
 import argparse
 import sys
 
+EXCHANGES = ("alltoall", "ring", "fused")
+
+
+def _common(p: argparse.ArgumentParser, default_output: str) -> None:
+    p.add_argument("input")
+    p.add_argument("-o", "--output", default=default_output)
+    p.add_argument("--workers", type=int, default=8, help="virtual mesh shards")
+    p.add_argument("--exchange", choices=EXCHANGES, default=None,
+                   help="bucket exchange schedule (default: JobConfig's)")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dsort_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="sort a one-int-per-line text file")
-    run.add_argument("input")
-    run.add_argument("-o", "--output", default="output.txt")
-    run.add_argument("--workers", type=int, default=8, help="virtual mesh shards")
-    run.add_argument("--device", default=None, help="cuda (default) or cpu")
+    _common(sub.add_parser("run", help="sort a one-int-per-line text file"), "output.txt")
+    _common(
+        sub.add_parser("terasort", help="sort a binary 100-byte-record file"),
+        "terasort_out.bin",
+    )
     return ap
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    from dsort_tpu_torch.data.ingest import read_ints_file, write_ints_file
+    from dsort_tpu_torch.data import ingest
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort
 
-    mesh = VirtualMesh(args.workers, args.device)
-    write_ints_file(args.output, SampleSort(mesh).sort(read_ints_file(args.input)))
+    ss = SampleSort(VirtualMesh(args.workers, args.device))
+    if args.cmd == "run":
+        out = ss.sort(ingest.read_ints_file(args.input), exchange=args.exchange)
+        ingest.write_ints_file(args.output, out)
+        return 0
+    keys, payload = ingest.read_terasort_file(args.input)
+    sk, sv = ss.sort_kv(
+        keys, payload, secondary=ingest.terasort_secondary(payload),
+        exchange=args.exchange,
+    )
+    ingest.write_terasort_file(args.output, sk, sv)
     return 0
 
 

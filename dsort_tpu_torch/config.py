@@ -17,7 +17,7 @@ _LOCAL_PORTED = ("auto", "lax", "block")
 _MERGE_KERNELS = ("auto", "sort", "bitonic", "block_merge")
 _MERGE_PORTED = ("auto", "sort", "block_merge")
 _EXCHANGES = ("alltoall", "ring", "fused", "hier")
-_EXCHANGE_PORTED = ("alltoall",)
+_EXCHANGE_PORTED = ("alltoall", "ring", "fused")
 
 
 class ConfigError(ValueError):
@@ -47,7 +47,11 @@ class JobConfig:
     - ``oversample``: splitter candidates per shard;
     - ``capacity_factor``: per-(src, dst) bucket headroom over n/P;
     - ``max_capacity_retries``: measured-capacity retries after an overflow;
-    - ``exchange``: the bucket exchange; only ``alltoall`` is ported.
+    - ``exchange``: the bucket exchange: ``alltoall`` (one padded
+      transpose with the measured-capacity retry), ``ring`` (P-1 shifts
+      sized from the measured histogram, merged as they land) or
+      ``fused`` (the same schedule as one exchange kernel plus one merge,
+      `ops.ring_kernel`); ``hier`` is not ported yet.
     """
 
     local_kernel: str = "auto"
@@ -79,11 +83,13 @@ class JobConfig:
         ``dsort_tpu`` ``JobConfig`` — how both packages run one sort with
         identical settings.
 
-        Read: ``local_kernel``, ``merge_kernel``, ``exchange``,
-        ``oversample``, ``capacity_factor``, ``max_capacity_retries``.
+        Read: ``local_kernel``, ``merge_kernel``, ``exchange`` (``alltoall``,
+        ``ring`` or ``fused``), ``oversample``, ``capacity_factor``,
+        ``max_capacity_retries``.
 
         Ignored (not read by the ported path yet): ``key_dtype`` (the input
-        array's dtype decides), ``payload_bytes``, ``hier_hosts``,
+        array's dtype decides), ``payload_bytes`` (the payload array's row
+        decides), ``hier_hosts``,
         ``redundancy_mode``, ``max_reassign_attempts``, ``settle_delay_s``,
         ``heartbeat_timeout_s``, ``compile_grace_s``,
         ``max_transient_retries``, ``exec_allowance_floor_s``,

@@ -1,10 +1,13 @@
-"""One-int-per-line text IO (the reference's ``input.txt`` / ``output.txt``).
+"""Text and TeraSort record IO.
 
-Counterpart of ``dsort_tpu/data/ingest.py``'s ``read_ints_file`` /
-``write_ints_file`` in plain numpy (the native C++ text IO is not ported
-yet).  The output is byte-compatible with the reference's: one decimal int
-per line, ``\\n``-terminated.  Keys outside the dtype's range raise
-`OverflowError` instead of wrapping.
+Counterpart of ``dsort_tpu/data/ingest.py`` in plain numpy (the native C++
+text IO is not ported yet), byte-compatible with the reference:
+
+- ``read_ints_file`` / ``write_ints_file``: one decimal int per line,
+  ``\\n``-terminated (the reference's ``input.txt`` / ``output.txt``); keys
+  outside the dtype's range raise `OverflowError` instead of wrapping;
+- TeraSort's 100-byte binary records (`read_terasort_file`,
+  `write_terasort_file`, `gen_terasort`).
 """
 
 from __future__ import annotations
@@ -37,3 +40,55 @@ def write_ints_file(path: str | os.PathLike, data: np.ndarray) -> None:
     text = "".join(f"{v}\n" for v in data.tolist())
     with open(path, "wb") as f:
         f.write(text.encode("ascii"))
+
+
+RECORD_BYTES = 100  # TeraSort record: 10-byte key + 90-byte value
+
+
+def read_terasort_file(path: str | os.PathLike) -> tuple[np.ndarray, np.ndarray]:
+    """Read a binary TeraSort file into ``(packed_keys, payload)``.
+
+    The first 8 key bytes pack big-endian into a uint64 sort key; the other
+    92 bytes (key bytes 8-9, then the 90-byte value) ride as the payload, so
+    records round-trip byte for byte.  `terasort_secondary` turns payload
+    columns 0-1 into the tiebreak that completes the 10-byte order.
+    """
+    raw = np.fromfile(path, dtype=np.uint8)
+    if len(raw) % RECORD_BYTES:
+        raise ValueError(f"{path}: size {len(raw)} not a multiple of {RECORD_BYTES}")
+    raw = raw.reshape(-1, RECORD_BYTES)
+    return _pack_be64(raw[:, :8]), raw[:, 8:].copy()
+
+
+def _pack_be64(key_bytes: np.ndarray) -> np.ndarray:
+    """(n, 8) uint8 big-endian rows -> native uint64."""
+    return np.ascontiguousarray(key_bytes).view(">u8").reshape(-1).astype(np.uint64)
+
+
+def terasort_secondary(payload: np.ndarray) -> np.ndarray:
+    """Key bytes 8-9 of TeraSort records (payload columns 0-1) as a
+    big-endian uint16: with the packed 8-byte prefix, the full 10-byte key."""
+    return (payload[:, 0].astype(np.uint16) << np.uint16(8)) | payload[:, 1]
+
+
+def write_terasort_file(
+    path: str | os.PathLike, keys: np.ndarray, payload: np.ndarray
+) -> None:
+    """Write ``(packed_keys, payload)`` back as 100-byte records."""
+    raw = np.empty((len(keys), RECORD_BYTES), dtype=np.uint8)
+    k = keys.astype(np.uint64)
+    for b in range(8):
+        raw[:, b] = (k >> np.uint64(8 * (7 - b))).astype(np.uint8)
+    raw[:, 8:] = payload
+    raw.tofile(path)
+
+
+def gen_terasort(
+    n: int, key_bytes: int = 10, payload_bytes: int = 90, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded TeraSort-style records: ``(keys uint64, payload (n, key_bytes
+    - 8 + payload_bytes) uint8)``, the same bytes as the reference's
+    generator for the same seed."""
+    rng = np.random.default_rng(seed)
+    raw = rng.integers(0, 256, size=(n, key_bytes + payload_bytes), dtype=np.uint8)
+    return _pack_be64(raw[:, :8]), raw[:, 8:]

@@ -1,8 +1,9 @@
 """Build the CUDA sources of ``csrc/`` at first use and load them with ctypes.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface — seconds to build, where a source that includes
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c`` compiles every ``csrc/*.cu`` to an object, one nvcc per source,
+all started together; one ``nvcc -shared`` links them into a single library
+with a plain C interface — seconds to build, where a source that includes
 PyTorch's headers takes minutes.  The library lands in
 ``build/dsort_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads
@@ -28,18 +29,33 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "dsort_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-#: C entry points and their argument types (x, rows, row_len, ..., stream).
+_BITONIC = {
+    # (keys, ranks or NULL, rows, row_len, T | k, k_start | k | j, stream)
+    "tile": (_P, _P, _LL, _LL, _I, _LL, _P),
+    "global_stage": (_P, _P, _LL, _LL, _LL, _LL, _P),
+    "tile_merge": (_P, _P, _LL, _LL, _I, _LL, _P),
+}
+#: C entry points and their argument types.
 SIGNATURES = {
-    "dsort_bitonic_tile_i32": (_P, _LL, _LL, _I, _LL, _P),
-    "dsort_bitonic_tile_i64": (_P, _LL, _LL, _I, _LL, _P),
-    "dsort_bitonic_global_stage_i32": (_P, _LL, _LL, _LL, _LL, _P),
-    "dsort_bitonic_global_stage_i64": (_P, _LL, _LL, _LL, _LL, _P),
-    "dsort_bitonic_tile_merge_i32": (_P, _LL, _LL, _I, _LL, _P),
-    "dsort_bitonic_tile_merge_i64": (_P, _LL, _LL, _I, _LL, _P),
+    **{
+        f"dsort_bitonic_{name}_{suffix}": argtypes
+        for name, argtypes in _BITONIC.items() for suffix in ("i32", "i64")
+    },
+    # (xs, starts, lens, payload, wk, wt, wv, P, n_local, slot, row_bytes,
+    #  host caps, stream)
+    **{
+        f"dsort_ring_exchange_{suffix}": (
+            _P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
+            ctypes.POINTER(ctypes.c_longlong), _P,
+        )
+        for suffix in ("i32", "i64")
+    },
+    # (ws, tags, out, rows, total, tag_stride, row_bytes, stream)
+    "dsort_gather_rows": (_P, _P, _P, _LL, _LL, _LL, _LL, _P),
 }
 
 _lock = threading.Lock()
@@ -76,25 +92,44 @@ def _nvcc() -> str:
     return found
 
 
+def _check(cmd: list[str], rc: int, out: str, err: str, *tmp: Path) -> None:
+    """Raise with nvcc's output on a non-zero exit, removing ``tmp``."""
+    if rc != 0:
+        for t in tmp:
+            t.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for this source hash exists;
     returns its path."""
     global last_build_s
-    out = BUILD_DIR / f"libdsort_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libdsort_kernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc, tag = _nvcc(), f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     t0 = time.perf_counter()
+    cmds = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sources(), objs)
+    ]
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in cmds
+    ]
+    outputs = [proc.communicate() for proc in procs]  # waits for all of them
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, outputs):
+        _check(cmd, proc.returncode, stdout, stderr, *objs)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     last_build_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    _check(cmd, proc.returncode, proc.stdout, proc.stderr, tmp, *objs)
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
     return out
 

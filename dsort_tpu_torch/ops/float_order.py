@@ -15,11 +15,13 @@ unsigned mapping followed by the sign-bit flip (the trick of
 
 -0.0 orders just before +0.0; ±0.0, ±inf and subnormals round-trip
 bit-exactly.  `unsigned_to_signed` / `signed_to_unsigned` are the plain
-sign-bit flip for unsigned integer keys.
+sign-bit flip for unsigned integer keys; `sort_float_keys_via_uint` is the
+one float boundary every host driver goes through.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _FLOAT_TO_INT = {
@@ -103,3 +105,23 @@ def from_signed_keys(s: torch.Tensor, dtype) -> torch.Tensor:
     if dtype in _UNSIGNED_TO_SIGNED:
         return signed_to_unsigned(s, dtype)
     return s
+
+
+def sort_float_keys_via_uint(sort_fn, keys: np.ndarray, *args, **kwargs):
+    """Run a sort of float host keys through the bijection: map to the
+    signed carrier, ``sort_fn(mapped, *args, **kwargs)``, unmap.
+
+    ``sort_fn`` returns the sorted keys, or a tuple whose first element is
+    the sorted keys (key+payload drivers).  The reference's name is kept;
+    its carrier is the ordered uint, this package's the signed int.
+    """
+    keys = np.asarray(keys)
+    t = torch.from_numpy(np.ascontiguousarray(keys))
+    out = sort_fn(float_to_ordered_int(t).numpy(), *args, **kwargs)
+
+    def unmap(s: np.ndarray) -> np.ndarray:
+        return ordered_int_to_float(torch.from_numpy(np.ascontiguousarray(s)), t.dtype).numpy()
+
+    if isinstance(out, tuple):
+        return (unmap(out[0]),) + out[1:]
+    return unmap(out)

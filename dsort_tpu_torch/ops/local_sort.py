@@ -8,10 +8,13 @@ Shapes: every function takes a 1-D tensor or a 2-D batch of rows and works
 along the last axis, so the P shards of a `parallel.mesh.VirtualMesh` sort
 in one call.  Padding convention as in the reference: pads hold
 `sentinel_for` (the dtype's maximum) so an ascending sort parks them at the
-tail and trimming by count recovers the valid keys.
+tail and trimming by count recovers the valid keys.  The key+payload
+sorts (`sort_kv`, `sort_kv_padded`, `sort_kv2_padded`) follow at the end.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -101,3 +104,94 @@ def sort_padded(
         torch.full((), sentinel_for(keys.dtype), dtype=keys.dtype, device=keys.device),
     )
     return sort_with_kernel(masked, kernel), count
+
+
+# -- key + payload (records) -------------------------------------------------
+#
+# ``torch.sort`` has no multi-key form.  A lexicographic order is built from
+# stable sorts, last key first; every permutation comes back as indices and
+# the payload rows follow through one `_apply_perm`.  As in the reference
+# these are the framework sort on every device (the JAX ``sort_kv_padded``
+# is ``lax.sort``), never the block kernels.
+
+
+def _apply_perm(payload: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Permute ``payload (*lead, m, *trail)`` along the axis after
+    ``perm``'s leading dims: ``perm (*lead, n)`` of row indices in
+    ``[0, m)`` -> ``(*lead, n, *trail)``.  One ``index_select`` of whole
+    rows (no index expanded over the trailing dims)."""
+    lead, n = tuple(perm.shape[:-1]), perm.shape[-1]
+    m, trail = payload.shape[len(lead)], tuple(payload.shape[len(lead) + 1 :])
+    b = math.prod(lead)
+    base = torch.arange(b, device=perm.device).unsqueeze(1) * m
+    flat = (perm.reshape(b, n).long() + base).reshape(-1)
+    return payload.reshape((b * m,) + trail).index_select(0, flat).reshape(lead + (n,) + trail)
+
+
+def _stable_order(key: torch.Tensor, perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Indices that stably sort ``key`` (taken through ``perm`` when given)
+    along the last axis, composed with ``perm``."""
+    from dsort_tpu_torch.ops.float_order import to_signed_keys
+
+    k = to_signed_keys(key) if key.dtype != torch.bool else key.to(torch.int8)
+    if perm is None:
+        return torch.sort(k, dim=-1, stable=True).indices
+    order = torch.sort(k.gather(-1, perm), dim=-1, stable=True).indices
+    return perm.gather(-1, order)
+
+
+def sort_kv(
+    keys: torch.Tensor, payload: torch.Tensor, stable: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort ``keys`` ascending along the last axis, permuting ``payload``
+    rows (shape ``keys.shape + (...)``, or ``keys.shape``) with them.
+    ``stable=True`` keeps equal-key records in input order."""
+    out_k, perm = torch.sort(keys, dim=-1, stable=stable)
+    return out_k, _apply_perm(payload, perm)
+
+
+def _masked(keys: torch.Tensor, count) -> tuple[torch.Tensor, torch.Tensor]:
+    count = torch.as_tensor(count, device=keys.device)
+    is_pad = torch.arange(keys.shape[-1], device=keys.device) >= count.unsqueeze(-1)
+    sent = torch.full((), sentinel_for(keys.dtype), dtype=keys.dtype, device=keys.device)
+    return torch.where(is_pad, sent, keys), is_pad
+
+
+def sort_kv_padded(
+    keys: torch.Tensor, payload: torch.Tensor, count
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Key+payload `sort_padded`, reserving no key value: the order is
+    ``(key, is_pad)``, so real keys equal to the sentinel keep their
+    payloads ahead of the pads.  Pads sit at the tail positions, so one
+    stable sort of the sentinel-masked keys already gives that order.
+    Returns ``(keys, payload, count)``."""
+    masked, _ = _masked(keys, count)
+    perm = _stable_order(masked)
+    return masked.gather(-1, perm), _apply_perm(payload, perm), torch.as_tensor(count)
+
+
+def sort_kv2_padded(
+    keys: torch.Tensor, secondary: torch.Tensor, payload: torch.Tensor, count
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-level `sort_kv_padded`: the order is ``(key, is_pad,
+    secondary)`` (TeraSort's 8-byte prefix, then key bytes 8-9), by stable
+    sorts from the last key to the first.  Returns ``(keys, secondary,
+    payload, count)``, all permuted together."""
+    masked, is_pad = _masked(keys, count)
+    perm = _stable_order(secondary)
+    perm = _stable_order(is_pad, perm)
+    perm = _stable_order(masked, perm)
+    return (
+        masked.gather(-1, perm), secondary.gather(-1, perm),
+        _apply_perm(payload, perm), torch.as_tensor(count),
+    )
+
+
+def sort_pairs(
+    keys: torch.Tensor, tags: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lexicographic ``(key, tag)`` ascending sort along the last axis (the
+    reference's two-key ``lax.sort``): stable by tag, then stable by key.
+    Returns both, permuted."""
+    perm = _stable_order(keys, _stable_order(tags))
+    return keys.gather(-1, perm), tags.gather(-1, perm)

@@ -1,21 +1,26 @@
-"""Distributed sample sort over a `VirtualMesh`: splitters, all_to_all, merge.
+"""Distributed sample sort over a `VirtualMesh`: splitters, exchange, merge.
 
-Counterpart of ``dsort_tpu/parallel/sample_sort.py``'s keys path with the
-``alltoall`` exchange.  The reference runs one program per device under
-``shard_map``; here the P shards are the rows of one tensor, so each phase
-is one batched call:
+Counterpart of ``dsort_tpu/parallel/sample_sort.py``'s `SampleSort` for
+keys (`sort`, `sort_ranges`) and key+payload records (`sort_kv`, with an
+optional secondary key — TeraSort's 10-byte order).  The reference runs one
+program per device under ``shard_map``; here the P shards are the rows of
+one tensor, so each phase is one batched call:
 
   1. local sort of every shard (`ops.local_sort.sort_padded`; ``auto`` picks
-     the block-bitonic CUDA kernels for integer keys >= 2^16 on a GPU);
+     the block-bitonic CUDA kernels for integer keys >= 2^16 on a GPU;
+     records sort with ``torch.sort``, as the reference's ``lax.sort``);
   2. ``oversample`` samples per shard, all_gather, P-1 splitters — with the
      reference's float32 index arithmetic, so per-shard counts match it;
-  3. contiguous bucket slices into a ``(P_src, P_dst, cap_pair)`` buffer;
-  4. all_to_all, a transpose on the virtual mesh;
-  5. merge of each destination's P received runs (`ops.block_sort.
-     block_merge_runs` under ``merge_kernel="auto"`` on a GPU).
-
-A bucket larger than ``cap_pair`` overflows; the host then retries with a
-capacity sized from the measured largest bucket (`next_cap_pair`).
+  3. the exchange, chosen by ``exchange=`` / `JobConfig.exchange`:
+     ``alltoall`` slices every shard into a ``(P_src, P_dst, cap_pair)``
+     buffer and transposes it (a bucket larger than ``cap_pair`` overflows
+     and the host retries with a capacity sized from the measured largest
+     bucket, `next_cap_pair`); ``ring`` and ``fused`` first measure the
+     ``(P, P)`` bucket histogram and size each ring step's buffer from it
+     (`parallel.exchange`, `ops.ring_kernel`), so they never retry;
+  4. merge of each destination's P received runs (`ops.block_sort.
+     block_merge_runs` / ``block_merge_runs_kv`` under ``merge_kernel=
+     "auto"`` on a GPU).
 
 Keys ride as signed ints: unsigned keys through the sign-bit flip and float
 keys through `ops.float_order`, both order-preserving, so splitters, bucket
@@ -28,20 +33,35 @@ import numpy as np
 import torch
 
 from dsort_tpu_torch.config import JobConfig
-from dsort_tpu_torch.data.partition import pad_to_shards
+from dsort_tpu_torch.data.partition import pad_kv_to_shards, pad_to_layout, pad_to_shards
 from dsort_tpu_torch.ops.float_order import (
-    float_to_ordered_int,
     from_signed_keys,
-    is_float_key_dtype,
-    ordered_int_to_float,
+    sort_float_keys_via_uint,
     to_signed_keys,
 )
 from dsort_tpu_torch.ops.local_sort import (
+    _apply_perm,
+    _stable_order,
     resolve_kernel,
     sentinel_for,
     sort_keys,
+    sort_kv2_padded,
+    sort_kv_padded,
     sort_padded,
     sort_with_kernel,
+)
+from dsort_tpu_torch.parallel.exchange import (
+    _bucket_bounds,
+    _ring_exchange_kv_shard,
+    _ring_exchange_shard,
+    _ring_plan_kv_shard,
+    _ring_plan_shard,
+    check_ring_overflow,
+    note_alltoall_attempt,
+    note_fused_plan,
+    note_ring_plan,
+    resolve_exchange,
+    ring_caps,
 )
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 from dsort_tpu_torch.utils.logging import get_logger
@@ -99,23 +119,12 @@ def _bucket_slices(xs_sorted, counts, splitters, cap_pair: int):
 
     Returns ``(gather_index, valid_mask, lens, overflow)``: index and mask
     ``(P_src, P_dst, cap_pair)``, ``lens`` the true ``(P_src, P_dst)``
-    bucket sizes, ``overflow`` per source shard.  Keys equal to a splitter
-    go to its right bucket (``right=False``), so bucket d holds exactly
-    ``[splitters[d-1], splitters[d])``.
+    bucket sizes (`exchange._bucket_bounds`), ``overflow`` per source shard.
     """
-    p, n_local = xs_sorted.shape
-    dev = xs_sorted.device
-    cnt = counts.long().unsqueeze(1)
-    bounds = torch.searchsorted(
-        xs_sorted, splitters.unsqueeze(0).expand(p, -1).contiguous(), right=False
-    )
-    bounds = torch.minimum(bounds.clamp(min=0), cnt)
-    zero = torch.zeros((p, 1), dtype=bounds.dtype, device=dev)
-    starts = torch.cat([zero, bounds], dim=1)
-    ends = torch.cat([bounds, cnt], dim=1)
-    lens = (ends - starts).clamp(min=0)
+    n_local = xs_sorted.shape[1]
+    starts, lens = _bucket_bounds(xs_sorted, counts, splitters)
     overflow = (lens > cap_pair).any(dim=1)
-    ar = torch.arange(cap_pair, device=dev)
+    ar = torch.arange(cap_pair, device=xs_sorted.device)
     gidx = (starts.unsqueeze(2) + ar).clamp(0, max(n_local - 1, 0))
     valid = ar < lens.unsqueeze(2)
     return gidx, valid, lens, overflow
@@ -186,11 +195,95 @@ def _sample_sort_shard(
     return merged, lens_recv.sum(dim=1), overflow, lens.max(dim=1).values
 
 
+def _merge_received_kv(
+    flat_k: torch.Tensor, is_pad: torch.Tensor, cap_pair: int, merge_kernel: str,
+    kernel: str = "lax",
+):
+    """Sorted keys and payload permutation of every destination's received
+    kv buffer ``(P_dst, P_src * cap_pair)``.
+
+    The order is ``(key, is_pad, position)``, so real keys equal to the
+    sentinel keep their payloads.  ``block_merge`` merges the received runs
+    through `ops.block_sort.block_merge_runs_kv` with the tiebreak
+    ``is_pad * total + position`` as its rank plane, which comes back as the
+    permutation; ``sort`` re-sorts flat — through ``block_sort_pairs`` where
+    the local kernel resolves to ``block``, by stable ``torch.sort`` passes
+    otherwise.
+    """
+    p, total = flat_k.shape
+    dev = flat_k.device
+    merge_kernel = _resolve_merge_kernel(merge_kernel, kernel, flat_k.dtype, total, dev)
+    tieb = is_pad.to(torch.int32) * total + torch.arange(total, dtype=torch.int32, device=dev)
+    if merge_kernel == "block_merge":
+        from dsort_tpu_torch.ops.block_sort import block_merge_runs_kv
+
+        runs = (p, total // cap_pair, cap_pair)
+        out_k, t = block_merge_runs_kv(flat_k.view(runs), tieb.view(runs))
+        return out_k, torch.where(t < total, t, 0)
+    if merge_kernel != "sort":
+        raise NotImplementedError(
+            f"merge kernel {merge_kernel!r} is not yet ported to dsort_tpu_torch"
+        )
+    if resolve_kernel(kernel, flat_k.dtype, total, dev) == "block":
+        from dsort_tpu_torch.ops.block_sort import block_sort_pairs
+
+        out_k, t = block_sort_pairs(flat_k, tieb)
+        return out_k, torch.where(t < total, t, 0)
+    perm = _stable_order(flat_k, _stable_order(is_pad))
+    return flat_k.gather(1, perm), perm
+
+
+def _kv_shard_body(
+    keys, payload, sec, counts, *, mesh: VirtualMesh, oversample: int, cap_pair: int,
+    merge_kernel: str = "sort", kernel: str = "lax",
+):
+    """Every shard's view of the record sort, batched over the mesh's rows.
+
+    With ``sec=None`` the order is the key; with a secondary it is ``(key,
+    sec)``, the secondary rides the exchange beside the payload and the
+    combine is the stable-sort one (the run merge carries one tiebreak
+    plane).  Returns ``(keys (P, P*cap), payload (P, P*cap, ...),
+    out_count (P,), overflow (P,), max_len (P,))``.  One worker
+    short-circuits after the local sort.
+    """
+    p = mesh.num_workers
+    if sec is None:
+        keys, payload, _ = sort_kv_padded(keys, payload, counts)
+    else:
+        keys, sec, payload, _ = sort_kv2_padded(keys, sec, payload, counts)
+    if p == 1:
+        cnt = counts.long()
+        return keys, payload, cnt, torch.zeros(1, dtype=torch.bool, device=keys.device), cnt
+    splitters = _choose_splitters(keys, counts, mesh, oversample)
+    gidx, valid, lens, overflow = _bucket_slices(keys, counts, splitters, cap_pair)
+    flat_idx = gidx.view(p, -1)
+    sent = torch.full((), sentinel_for(keys.dtype), dtype=keys.dtype, device=keys.device)
+    send_k = torch.where(valid, keys.gather(1, flat_idx).view(p, p, cap_pair), sent)
+    send_v = _apply_perm(payload, flat_idx).view((p, p, cap_pair) + payload.shape[2:])
+    recv_k = mesh.all_to_all(send_k)
+    recv_v = mesh.all_to_all(send_v)
+    lens_recv = mesh.all_to_all(lens)
+    # Validity re-derived after the exchange: real keys equal to the
+    # sentinel keep their payloads (no reserved key value).
+    pos = torch.arange(cap_pair, device=keys.device)
+    is_pad = (pos >= lens_recv.unsqueeze(2)).view(p, -1)
+    flat_k = torch.where(is_pad, sent, recv_k.view(p, -1))
+    flat_v = recv_v.view((p, p * cap_pair) + payload.shape[2:])
+    if sec is None:
+        out_k, perm = _merge_received_kv(flat_k, is_pad, cap_pair, merge_kernel, kernel)
+    else:
+        recv_s = mesh.all_to_all(sec.gather(1, flat_idx).view(p, p, cap_pair)).view(p, -1)
+        perm = _stable_order(flat_k, _stable_order(is_pad, _stable_order(recv_s)))
+        out_k = flat_k.gather(1, perm)
+    return out_k, _apply_perm(flat_v, perm), lens_recv.sum(dim=1), overflow, lens.max(dim=1).values
+
+
 class SampleSort:
     """Host-facing driver of the sample sort over a `VirtualMesh`.
 
-    Handles the padded layout, the upload, the measured-capacity retries and
-    the assembly of the sorted output.
+    Handles the padded layout, the upload, the exchange plan (the
+    measured-capacity retries of ``alltoall``, the measured ring caps of
+    ``ring`` / ``fused``) and the assembly of the sorted output.
     """
 
     def __init__(self, mesh: VirtualMesh, job: JobConfig | None = None):
@@ -199,20 +292,23 @@ class SampleSort:
         self.num_workers = mesh.num_workers
 
     def _resolve_exchange(self, exchange: str | None) -> str:
-        exch = exchange if exchange is not None else self.job.exchange
-        if exch not in ("alltoall", "ring", "fused", "hier"):
-            raise ValueError(
-                "exchange must be 'alltoall', 'ring', 'fused' or 'hier', "
-                f"got {exch!r}"
-            )
-        if self.num_workers == 1 or exch == "alltoall":
-            return "alltoall"
-        raise NotImplementedError(
-            f"exchange={exch!r} is not yet ported to dsort_tpu_torch"
-        )
+        exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)
+        if exch == "hier":
+            raise NotImplementedError("exchange='hier' is not yet ported to dsort_tpu_torch")
+        return exch
 
     def _cap_pair(self, n_local: int, factor: float) -> int:
         return cap_pair_policy(n_local, factor, self.num_workers)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.mesh.device)
+
+    def _upload_keys(self, data: np.ndarray, timer: PhaseTimer):
+        """The ``(P, n_local)`` padded layout on the device as signed keys,
+        the per-shard counts, and ``n_local``."""
+        with timer.phase("partition"):
+            shards, counts = pad_to_shards(data, self.num_workers)
+            return to_signed_keys(self._upload(shards)), self._upload(counts), shards.shape[1]
 
     def sort(
         self, data: np.ndarray, metrics: Metrics | None = None,
@@ -222,16 +318,15 @@ class SampleSort:
 
         Float keys (with NaN, ±0.0, ±inf) ride as order-preserving signed
         ints (`ops.float_order`): NaNs sort last like ``np.sort`` and come
-        back canonical, never trimmed as pads.
+        back canonical, never trimmed as pads.  ``exchange`` (``alltoall``,
+        ``ring`` or ``fused``) overrides `JobConfig.exchange` for this call;
+        every choice gives the same bits.
         """
         data = np.asarray(data)
+        if data.dtype.kind == "f":
+            return sort_float_keys_via_uint(self.sort, data, metrics, exchange=exchange)
         if len(data) == 0:
             return data.copy()
-        t = torch.from_numpy(np.ascontiguousarray(data))
-        if is_float_key_dtype(t.dtype):
-            mapped = float_to_ordered_int(t).numpy()
-            out = self._sort_ranges_impl(mapped, metrics, exchange)[0]
-            return ordered_int_to_float(torch.from_numpy(out), t.dtype).numpy()
         return self._sort_ranges_impl(data, metrics, exchange)[0]
 
     def sort_ranges(
@@ -262,20 +357,20 @@ class SampleSort:
         self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics,
         exchange: str | None = None,
     ) -> tuple[torch.Tensor, np.ndarray]:
-        """Upload and run the shard program with measured-capacity retries.
+        """Upload and run the shard program; ``alltoall`` with
+        measured-capacity retries, ``ring`` / ``fused`` through
+        `_dispatch_keys_ring`.
 
-        Returns ``(merged, c)``: the ``(P, P*cap)`` device rows and the host
+        Returns ``(merged, c)``: the ``(P, width)`` device rows and the host
         copy of the per-shard counts — fetched together with the retry
         scalars in one small device-to-host copy, which is also the
         completion barrier.
         """
-        self._resolve_exchange(exchange)
+        exch = self._resolve_exchange(exchange)
+        if exch in ("ring", "fused"):
+            return self._dispatch_keys_ring(data, timer, metrics, fused=exch == "fused")
         p = self.num_workers
-        with timer.phase("partition"):
-            shards, counts = pad_to_shards(data, p)
-            xs = to_signed_keys(torch.from_numpy(shards).to(self.mesh.device))
-            cj = torch.from_numpy(counts).to(self.mesh.device)
-        n_local = shards.shape[1]
+        xs, cj, n_local = self._upload_keys(data, timer)
         cap_pair = self._cap_pair(n_local, self.job.capacity_factor)
         for attempt in range(self.job.max_capacity_retries + 1):
             with timer.phase("spmd_sort"):
@@ -287,31 +382,201 @@ class SampleSort:
                 stats = torch.cat(
                     [out_counts.long(), overflow.long(), max_len.long()]
                 ).cpu().numpy()
+            note_alltoall_attempt(metrics, cap_pair, data.dtype.itemsize, p)
             c, ov, ml = stats[:p], stats[p : 2 * p], stats[2 * p :]
             if not ov.any():
                 return merged, c
-            metrics.bump("capacity_retries")
-            observed = int(ml.max())
-            cap_pair = next_cap_pair(observed, cap_pair, n_local, p)
-            metrics.event("capacity_retry", observed=observed, cap_pair=cap_pair)
-            log.warning(
-                "bucket overflow (attempt %d, max bucket %d): retrying with "
-                "cap_pair=%d", attempt + 1, observed, cap_pair,
-            )
+            cap_pair = self._note_retry(metrics, attempt, int(ml.max()), cap_pair, n_local)
         raise RuntimeError("sample sort bucket overflow after max retries")
+
+    def _note_retry(
+        self, metrics: Metrics, attempt: int, observed: int, cap_pair: int, n_local: int
+    ) -> int:
+        """Count one capacity retry; returns the capacity to retry with."""
+        metrics.bump("capacity_retries")
+        cap_pair = next_cap_pair(observed, cap_pair, n_local, self.num_workers)
+        metrics.event("capacity_retry", observed=observed, cap_pair=cap_pair)
+        log.warning(
+            "bucket overflow (attempt %d, max bucket %d): retrying with "
+            "cap_pair=%d", attempt + 1, observed, cap_pair,
+        )
+        return cap_pair
+
+    def _plan_caps(
+        self, hist: torch.Tensor, n_local: int, bytes_per_slot: int, metrics: Metrics,
+        fused: bool,
+    ) -> tuple[int, ...]:
+        """Size the ring's steps from the measured histogram (the one extra
+        ``(P, P)`` device-to-host copy the ring costs) and journal the plan."""
+        hist_h = hist.cpu().numpy()
+        caps = ring_caps(hist_h, n_local, self.num_workers)
+        note = note_fused_plan if fused else note_ring_plan
+        note(
+            metrics, caps, hist_h, n_local, self.num_workers, bytes_per_slot,
+            self.job.capacity_factor,
+        )
+        return caps
+
+    def _dispatch_keys_ring(
+        self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics, fused: bool
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """Ring counterpart of `_dispatch_keys`: plan, size, exchange.  No
+        retry exists: every step's buffer is sized from the measured
+        histogram before the exchange runs, and an overflow is raised as an
+        invariant violation."""
+        from dsort_tpu_torch.ops.ring_kernel import fused_ring_exchange_shard
+
+        p = self.num_workers
+        xs, cj, n_local = self._upload_keys(data, timer)
+        with timer.phase("spmd_sort"):
+            xs_sorted, splitters, hist = _ring_plan_shard(
+                xs, cj, mesh=self.mesh, oversample=self.job.oversample,
+                kernel=self.job.local_kernel,
+            )
+            caps = self._plan_caps(hist, n_local, data.dtype.itemsize, metrics, fused)
+        kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
+        with timer.phase("spmd_sort"):
+            if fused:
+                merged, out_counts, overflow = fused_ring_exchange_shard(
+                    xs_sorted, cj, splitters, hist, **kw
+                )
+            else:
+                merged, out_counts, overflow = _ring_exchange_shard(
+                    xs_sorted, cj, splitters, **kw
+                )
+            stats = torch.cat([out_counts.long(), overflow.long()]).cpu().numpy()
+        check_ring_overflow(stats[p:])
+        return merged, stats[:p]
 
     def _assemble_ranges(
         self, merged: torch.Tensor, c: np.ndarray, n: int, dtype
     ) -> tuple[np.ndarray, list[np.ndarray]]:
         """Trim each row to its count on the device, copy the ``n`` keys to
         the host once, and hand out per-shard views of that buffer."""
-        if int(c.sum()) != n:  # a short buffer was detectable; a torn one is not
-            raise RuntimeError(f"device range counts sum to {int(c.sum())}, expected {n} keys")
-        dense = torch.cat([merged[i, : int(c[i])] for i in range(len(c))])
         key_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
-        out = from_signed_keys(dense, key_dtype).cpu().numpy()
+        out = from_signed_keys(_trim_rows(merged, c, n, "keys"), key_dtype).cpu().numpy()
         ranges, off = [], 0
         for ci in c:
             ranges.append(out[off : off + int(ci)])
             off += int(ci)
         return out, ranges
+
+    def sort_kv(
+        self,
+        keys: np.ndarray,
+        payload: np.ndarray,
+        metrics: Metrics | None = None,
+        secondary: np.ndarray | None = None,
+        exchange: str | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """TeraSort-style key+payload sort; payload rows (``payload[i]`` of
+        any trailing shape) follow their keys.
+
+        ``secondary`` (same length as ``keys``) breaks primary-key ties —
+        TeraSort's 10-byte key as the 8-byte packed prefix plus key bytes
+        8-9 (`data.ingest.terasort_secondary`).  The order of records with
+        equal keys (and secondaries) is not specified.  ``exchange``
+        overrides `JobConfig.exchange`; a secondary needs the ``alltoall``
+        combine and ``hier`` runs as ``ring`` (both warned).
+        """
+        keys = np.asarray(keys)
+        payload = np.asarray(payload)
+        if keys.dtype.kind == "f":
+            return sort_float_keys_via_uint(
+                self.sort_kv, keys, payload, metrics, secondary, exchange=exchange
+            )
+        exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)
+        if exch == "hier":
+            log.warning("exchange='hier' is keys-only; this kv sort uses the ring schedule")
+            exch = "ring"
+        if exch in ("ring", "fused") and secondary is not None:
+            log.warning(
+                "exchange=%r does not support a secondary key; using the "
+                "all_to_all exchange", exch,
+            )
+            exch = "alltoall"
+        if secondary is not None and self.job.merge_kernel not in ("sort", "auto"):
+            log.warning(
+                "merge_kernel=%r is not available with a secondary key; using "
+                "the sort combine", self.job.merge_kernel,
+            )
+        if len(keys) == 0:
+            return keys.copy(), payload.copy()
+        metrics = metrics if metrics is not None else Metrics()
+        timer = PhaseTimer(metrics)
+        p = self.num_workers
+        with timer.phase("partition"):
+            sk, sv, counts = pad_kv_to_shards(keys, payload, p)
+            xs = to_signed_keys(self._upload(sk))
+            vs = self._upload(sv)
+            cj = self._upload(counts)
+            sj = None
+            if secondary is not None:
+                sj = to_signed_keys(self._upload(pad_to_layout(np.asarray(secondary), counts, sk.shape[1])))
+        n_local = sk.shape[1]
+        slot_bytes = keys.dtype.itemsize + int(np.prod(sv.shape[2:], dtype=np.int64)) * sv.dtype.itemsize
+        if exch in ("ring", "fused"):
+            out_k, out_v, c = self._dispatch_kv_ring(
+                xs, vs, cj, n_local, slot_bytes, timer, metrics, fused=exch == "fused"
+            )
+        else:
+            cap_pair = self._cap_pair(n_local, self.job.capacity_factor)
+            for attempt in range(self.job.max_capacity_retries + 1):
+                with timer.phase("spmd_sort"):
+                    out_k, out_v, out_counts, overflow, max_len = _kv_shard_body(
+                        xs, vs, sj, cj, mesh=self.mesh, oversample=self.job.oversample,
+                        cap_pair=cap_pair, merge_kernel=self.job.merge_kernel,
+                        kernel=self.job.local_kernel,
+                    )
+                    stats = torch.cat(
+                        [out_counts.long(), overflow.long(), max_len.long()]
+                    ).cpu().numpy()
+                note_alltoall_attempt(metrics, cap_pair, slot_bytes, p)
+                c, ov, ml = stats[:p], stats[p : 2 * p], stats[2 * p :]
+                if not ov.any():
+                    break
+                cap_pair = self._note_retry(metrics, attempt, int(ml.max()), cap_pair, n_local)
+            else:
+                raise RuntimeError("sample sort bucket overflow after max retries")
+        with timer.phase("assemble"):
+            n = len(keys)
+            key_dtype = torch.from_numpy(np.empty(0, keys.dtype)).dtype
+            keys_out = from_signed_keys(_trim_rows(out_k, c, n, "records"), key_dtype)
+            vals_out = _trim_rows(out_v, c, n, "records")
+            return keys_out.cpu().numpy(), vals_out.cpu().numpy()
+
+    def _dispatch_kv_ring(
+        self, xs, vs, cj, n_local: int, slot_bytes: int, timer: PhaseTimer,
+        metrics: Metrics, fused: bool,
+    ):
+        """kv ring dispatch: plan (record local sort + histogram), size,
+        exchange.  ``slot_bytes`` (key + payload row) prices the wire bytes:
+        each payload row moves once per step on both schedules."""
+        from dsort_tpu_torch.ops.ring_kernel import fused_ring_exchange_kv_shard
+
+        p = self.num_workers
+        with timer.phase("spmd_sort"):
+            ks, vsort, splitters, hist = _ring_plan_kv_shard(
+                xs, vs, cj, mesh=self.mesh, oversample=self.job.oversample
+            )
+            caps = self._plan_caps(hist, n_local, slot_bytes, metrics, fused)
+        kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
+        with timer.phase("spmd_sort"):
+            if fused:
+                out_k, out_v, out_counts, overflow = fused_ring_exchange_kv_shard(
+                    ks, vsort, cj, splitters, hist, **kw
+                )
+            else:
+                out_k, out_v, out_counts, overflow = _ring_exchange_kv_shard(
+                    ks, vsort, cj, splitters, **kw
+                )
+            stats = torch.cat([out_counts.long(), overflow.long()]).cpu().numpy()
+        check_ring_overflow(stats[p:])
+        return out_k, out_v, stats[:p]
+
+
+def _trim_rows(rows: torch.Tensor, c: np.ndarray, n: int, what: str) -> torch.Tensor:
+    """Concatenate the first ``c[i]`` entries of every row, on the device."""
+    if int(c.sum()) != n:  # a short buffer was detectable; a torn one is not
+        raise RuntimeError(f"device range counts sum to {int(c.sum())}, expected {n} {what}")
+    return torch.cat([rows[i, : int(c[i])] for i in range(len(c))])

@@ -178,7 +178,7 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     np.testing.assert_array_equal(got.numpy(), tb.global_stage_plain(x.clone(), 4096, 1024).numpy())
     got = tb.bitonic_tile_merge(x.clone(), 1024, 4096)
     np.testing.assert_array_equal(got.numpy(), tb.tile_merge_plain(x.clone(), 1024, 4096).numpy())
-    assert tb.launch_counts() == dict.fromkeys(tb.WRAPPERS, 0)
+    assert not any(tb.launch_counts().values())
 
 
 @pytest.mark.parametrize("bad", ["dtype", "row_len", "tile", "contiguous", "device", "k"])
@@ -199,3 +199,172 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         call = lambda: tb.bitonic_global_stage(x, 2048, 2048)  # noqa: E731
     with pytest.raises((ValueError, TypeError)):
         call()
+
+
+# -- the rank plane ----------------------------------------------------------
+
+
+def _tied_keys(rng, n, dtype):
+    """Few distinct keys (so ranks decide), the dtype's extremes and the
+    sentinel among them."""
+    info = np.iinfo(dtype)
+    pool = np.array([info.min, info.max, 0, 1, 7, info.max - 1], dtype=dtype)
+    return rng.choice(pool, n)
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_tile_sort_plain_rank_matches_k1(case):
+    """tile_sort_plain with the rank plane == K1 `_tile_sort_cm` on
+    (key, rank) planes: 4 tiles of 1024, alternately directed."""
+    rng = np.random.default_rng(21)
+    n = 4 * JAX_TILE
+    x = (rng.integers(-(2**31), 2**31, n).astype(np.int32)
+         if case == "random" else _tied_keys(rng, n, np.int32))
+    r = rng.permutation(n).astype(np.int32)
+    ref_k, ref_r = jb._tile_sort_cm(
+        (jnp.asarray(x.reshape(-1, 128)), jnp.asarray(r.reshape(-1, 128))), 8, True
+    )
+    k, rk_ = torch.from_numpy(x.copy()).view(1, -1), torch.from_numpy(r.copy()).view(1, -1)
+    tb.tile_sort_plain(k, JAX_TILE, 2, rk_)
+    np.testing.assert_array_equal(k.numpy().reshape(-1), np.asarray(ref_k).reshape(-1))
+    np.testing.assert_array_equal(rk_.numpy().reshape(-1), np.asarray(ref_r).reshape(-1))
+
+
+@pytest.mark.parametrize("k_start", [4, 256])
+def test_tile_sort_plain_rank_k_start_matches_k1b(k_start):
+    """The K1b merge entry with a rank plane: alternately directed runs of
+    k_start/2 (key, rank) pairs, equal keys included."""
+    rng = np.random.default_rng(k_start + 1)
+    run = k_start // 2
+    n = 4 * JAX_TILE
+    x = _tied_keys(rng, n, np.int32).reshape(-1, run)
+    r = rng.permutation(n).astype(np.int32).reshape(-1, run)
+    order = np.lexsort((r, x), axis=1)
+    x, r = np.take_along_axis(x, order, 1), np.take_along_axis(r, order, 1)
+    x[1::2], r[1::2] = x[1::2, ::-1], r[1::2, ::-1]
+    x, r = x.reshape(-1).copy(), r.reshape(-1).copy()
+    ref_k, ref_r = jb._sort_levels(
+        (jnp.asarray(x.reshape(-1, 128)), jnp.asarray(r.reshape(-1, 128))), 8, k_start, True, True
+    )
+    k, rk_ = torch.from_numpy(x.copy()).view(1, -1), torch.from_numpy(r.copy()).view(1, -1)
+    tb.tile_sort_plain(k, JAX_TILE, k_start, rk_)
+    np.testing.assert_array_equal(k.numpy().reshape(-1), np.asarray(ref_k).reshape(-1))
+    np.testing.assert_array_equal(rk_.numpy().reshape(-1), np.asarray(ref_r).reshape(-1))
+
+
+def _pairs_case(rng, n, dtype, case):
+    if case == "random":
+        k = _keys(rng, n, dtype)
+    elif case == "ties":
+        k = _tied_keys(rng, n, dtype)
+    elif case == "equal":
+        k = np.full(n, 5, dtype)
+    else:  # every key the padding sentinel
+        k = np.full(n, np.iinfo(dtype).max, dtype)
+    return k, rng.permutation(n).astype(np.int32)
+
+
+PAIR_DTYPES = [np.int32, np.uint32, np.int64, np.uint64]
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "equal", "sentinel"])
+@pytest.mark.parametrize("dtype", PAIR_DTYPES)
+def test_block_sort_pairs_single_block_matches_jax(dtype, case):
+    """n=1000 (one JAX block; pads engage): keys and permuted ranks equal
+    JAX's and the (key, rank) lexsort."""
+    rng = np.random.default_rng(31)
+    k, r = _pairs_case(rng, 1000, dtype, case)
+    ref_k, ref_r = jb.block_sort_pairs(
+        jnp.asarray(k), jnp.asarray(r), block_rows=64, tile_rows=8, interpret=True
+    )
+    out_k, out_r = tb.block_sort_pairs(torch.from_numpy(k), torch.from_numpy(r), tile=JAX_TILE)
+    np.testing.assert_array_equal(_bits(out_k.numpy()), _bits(np.asarray(ref_k)))
+    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+    order = np.lexsort((r, k))
+    np.testing.assert_array_equal(out_r.numpy(), r[order])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint64])
+def test_block_sort_pairs_deep_matches_jax(dtype, deep):
+    """n=9000: every JAX pass and every port kernel runs with the rank plane
+    (one 32-bit and one 64-bit key type; the single-block test covers all
+    four)."""
+    rng = np.random.default_rng(32)
+    k, r = _pairs_case(rng, 9000, dtype, "ties")
+    ref_k, ref_r = jb.block_sort_pairs(
+        jnp.asarray(k), jnp.asarray(r), block_rows=64, tile_rows=8, interpret=True
+    )
+    out_k, out_r = tb.block_sort_pairs(torch.from_numpy(k), torch.from_numpy(r), tile=JAX_TILE)
+    np.testing.assert_array_equal(_bits(out_k.numpy()), _bits(np.asarray(ref_k)))
+    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+
+
+def _kv_runs(rng, r, l, dtype, case):
+    """r rows of l (key, rank) pairs, each row sorted by (key, rank), ranks
+    the shuffle's ``is_pad * total + position`` with sentinel pads."""
+    total = r * l
+    k, _ = _pairs_case(rng, total, dtype, case)
+    k = k.reshape(r, l)
+    rank = np.arange(total, dtype=np.int32).reshape(r, l)
+    order = np.lexsort((rank, k), axis=1)
+    k, rank = np.take_along_axis(k, order, 1), np.take_along_axis(rank, order, 1)
+    k[:, -7:] = np.iinfo(dtype).max  # padded tails: pad ranks above every real one
+    rank[:, -7:] = total + np.arange(total).reshape(r, l)[:, -7:]
+    return k, rank
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "sentinel"])
+@pytest.mark.parametrize("dtype,r,l", [
+    (np.int32, 8, 100), (np.uint32, 3, 700), (np.int64, 8, 128), (np.uint64, 5, 96),
+])
+def test_block_merge_runs_kv_matches_jax(dtype, r, l, case):
+    """Runs shorter than a tile, non-power-of-two rows and lengths: the col
+    (2n + j) and row (3n + j) pad ranks engage on both sides."""
+    rng = np.random.default_rng(r * l)
+    k, rank = _kv_runs(rng, r, l, dtype, case)
+    ref_k, ref_r = jb.block_merge_runs_kv(
+        jnp.asarray(k), jnp.asarray(rank), block_rows=64, interpret=True
+    )
+    out_k, out_r = tb.block_merge_runs_kv(torch.from_numpy(k), torch.from_numpy(rank),
+                                          tile=JAX_TILE)
+    np.testing.assert_array_equal(_bits(out_k.numpy()), _bits(np.asarray(ref_k)))
+    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+    flat = np.lexsort((rank.reshape(-1), k.reshape(-1)))
+    np.testing.assert_array_equal(out_r.numpy(), rank.reshape(-1)[flat])
+
+
+def test_block_merge_runs_kv_deep_matches_jax(deep):
+    """8 runs of 4096 (key, rank) pairs enter at the global stages."""
+    rng = np.random.default_rng(33)
+    k, rank = _kv_runs(rng, 8, 4096, np.int32, "ties")
+    ref_k, ref_r = jb.block_merge_runs_kv(
+        jnp.asarray(k), jnp.asarray(rank), block_rows=64, interpret=True
+    )
+    out_k, out_r = tb.block_merge_runs_kv(torch.from_numpy(k), torch.from_numpy(rank),
+                                          tile=JAX_TILE)
+    np.testing.assert_array_equal(out_k.numpy(), np.asarray(ref_k))
+    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+
+
+def test_block_merge_runs_kv_batched_and_small_tile():
+    """(B, R, L) batches merge entry by entry; a small tile drives the
+    global stages with the rank plane on the CPU."""
+    rng = np.random.default_rng(34)
+    ks, rs = zip(*(_kv_runs(rng, 6, 300, np.int64, "ties") for _ in range(3)))
+    k, rank = np.stack(ks), np.stack(rs)
+    out_k, out_r = tb.block_merge_runs_kv(torch.from_numpy(k), torch.from_numpy(rank), tile=64)
+    for b in range(3):
+        flat = np.lexsort((rank[b].reshape(-1), k[b].reshape(-1)))
+        np.testing.assert_array_equal(out_k[b].numpy(), k[b].reshape(-1)[flat])
+        np.testing.assert_array_equal(out_r[b].numpy(), rank[b].reshape(-1)[flat])
+
+
+def test_rank_plane_wrappers_check_the_plane():
+    x = torch.zeros((2, 4096), dtype=torch.int32)
+    for bad in (torch.zeros((2, 4096), dtype=torch.int64), torch.zeros((2, 2048), dtype=torch.int32),
+                torch.zeros((4096, 2), dtype=torch.int32).t()):
+        with pytest.raises(ValueError):
+            tb.bitonic_global_stage(x, 4096, 2048, bad)
+    with pytest.raises(ValueError):  # 4096 x (8 + 4) B is 48 KB; 8192 keys are not
+        tb.bitonic_tile(torch.zeros((1, 8192), dtype=torch.int64), 8192, 2,
+                        torch.zeros((1, 8192), dtype=torch.int32))

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from dsort_tpu_torch.ops import block_sort as tb
+from dsort_tpu_torch.ops import ring_kernel as rk
 
 
 @pytest.fixture
@@ -27,29 +28,41 @@ def _keys(rng, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ranked", [False, True])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
-def test_kernels_match_plain_versions(cuda, dtype):
-    """Each kernel bit-identical to its plain version, and the launch
+def test_kernels_match_plain_versions(cuda, dtype, ranked):
+    """Each kernel bit-identical to its plain version, keys alone and with
+    the rank plane (heavy key ties, so ranks decide), and the launch
     counters move only where a kernel launched."""
     rng = np.random.default_rng(8)
-    x = torch.from_numpy(_keys(rng, (4, 16384), dtype)).to(cuda)
+    keys = _keys(rng, (4, 16384), dtype)
+    if ranked:
+        keys = keys % 7
+    x = torch.from_numpy(keys).to(cuda)
+    r = torch.from_numpy(rng.permutation(4 * 16384).astype(np.int32).reshape(4, -1)).to(cuda)
+    plane = tb.RANK if ranked else ""
     cases = [
-        ("bitonic_tile_kernel", lambda t: tb.bitonic_tile(t, 4096),
-         lambda t: tb.tile_sort_plain(t, 4096)),
-        ("bitonic_tile_kernel", lambda t: tb.bitonic_tile(t, 4096, 256),
-         lambda t: tb.tile_sort_plain(t, 4096, 256)),
-        ("bitonic_global_stage_kernel", lambda t: tb.bitonic_global_stage(t, 16384, 8192),
-         lambda t: tb.global_stage_plain(t, 16384, 8192)),
-        ("bitonic_tile_merge_kernel", lambda t: tb.bitonic_tile_merge(t, 4096, 16384),
-         lambda t: tb.tile_merge_plain(t, 4096, 16384)),
+        ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, 4096, 2, q),
+         lambda t, q: tb.tile_sort_plain(t, 4096, 2, q)),
+        ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, 4096, 256, q),
+         lambda t, q: tb.tile_sort_plain(t, 4096, 256, q)),
+        ("bitonic_global_stage_kernel", lambda t, q: tb.bitonic_global_stage(t, 16384, 8192, q),
+         lambda t, q: tb.global_stage_plain(t, 16384, 8192, q)),
+        ("bitonic_tile_merge_kernel", lambda t, q: tb.bitonic_tile_merge(t, 4096, 16384, q),
+         lambda t, q: tb.tile_merge_plain(t, 4096, 16384, q)),
     ]
     for name, kernel, plain in cases:
         tb.reset_launch_counts()
-        got = kernel(x.clone())
-        want = plain(x.clone())
+        kx, kr = x.clone(), r.clone() if ranked else None
+        px, pr = x.clone(), r.clone() if ranked else None
+        kernel(kx, kr)
+        plain(px, pr)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), name
-        assert tb.launch_counts()[name] == 1
+        assert torch.equal(kx, px), name
+        if ranked:
+            assert torch.equal(kr, pr), name
+        assert tb.launch_counts()[name + plane] == 1
+        assert sum(tb.launch_counts().values()) == 1
 
 
 @pytest.mark.cuda
@@ -65,13 +78,115 @@ def test_block_sort_and_merge_on_cuda(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_sample_sort_on_cuda_goes_through_the_kernels(cuda):
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_pair_sort_and_kv_merge_on_cuda(cuda, dtype):
+    """block_sort_pairs / block_merge_runs_kv on the card equal their plain
+    versions on the CPU (sentinel-valued keys and ties included)."""
+    rng = np.random.default_rng(11)
+    keys = _keys(rng, (3, 50_000), dtype) % 1000
+    keys[:, :100] = np.iinfo(dtype).max
+    rank = rng.permutation(keys.size).astype(np.int32).reshape(keys.shape)
+    got = tb.block_sort_pairs(torch.from_numpy(keys).to(cuda), torch.from_numpy(rank).to(cuda))
+    want = tb.block_sort_pairs(torch.from_numpy(keys), torch.from_numpy(rank))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    k2, r2 = want[0].numpy().reshape(3, 10, 5_000), want[1].numpy().reshape(3, 10, 5_000)
+    got = tb.block_merge_runs_kv(torch.from_numpy(k2).to(cuda), torch.from_numpy(r2).to(cuda))
+    want = tb.block_merge_runs_kv(torch.from_numpy(k2), torch.from_numpy(r2))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _exchange_inputs(rng, p, n_local, dtype, row_bytes):
+    """Sorted shards, a random bucket split of each, caps covering it."""
+    xs = np.sort(_keys(rng, (p, n_local), dtype), axis=1)
+    cuts = np.sort(rng.integers(0, n_local + 1, (p, p - 1)), axis=1)
+    starts = np.concatenate([np.zeros((p, 1), np.int64), cuts], axis=1)
+    lens = np.diff(np.concatenate([starts, np.full((p, 1), n_local)], axis=1), axis=1)
+    caps = tuple(
+        int(-(-max(lens[s, (s + k) % p] for s in range(p)) // 8) * 8) or 8 for k in range(p)
+    )
+    payload = rng.integers(0, 256, (p, n_local, row_bytes), dtype=np.uint8)
+    return xs, starts.astype(np.int64), lens.astype(np.int64), caps, payload
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,dtype,row_bytes", [(8, np.int32, 92), (7, np.int64, 13), (2, np.int64, 16)])
+def test_ring_exchange_and_gather_match_plain(cuda, p, dtype, row_bytes):
+    rng = np.random.default_rng(p)
+    xs, starts, lens, caps, payload = _exchange_inputs(rng, p, 20_000, dtype, row_bytes)
+    host = [torch.from_numpy(a) for a in (xs, starts, lens, payload)]
+    dev = [t.to(cuda) for t in host]
+    rk.reset_launch_counts()
+    for kv in (False, True):
+        got = rk.ring_exchange(*dev[:3], caps, dev[3] if kv else None)
+        want = rk.ring_exchange_plain(*host[:3], caps, host[3] if kv else None)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g.cpu(), w)
+    total = sum(caps)
+    ws = want[2]
+    tags = torch.from_numpy(rng.integers(-3, 2 * total, (p, total)).astype(np.int32))
+    assert torch.equal(rk.gather_rows(ws.to(cuda), tags.to(cuda)).cpu(), rk.gather_rows_plain(ws, tags))
+    assert rk.launch_counts() == {
+        "ring_exchange_kernel": 1, "ring_exchange_kernel+kv": 1, "gather_rows_kernel": 1,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["alltoall", "ring", "fused"])
+def test_sample_sort_on_cuda_goes_through_the_kernels(cuda, exchange):
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort
 
     rng = np.random.default_rng(10)
     x = _keys(rng, 1 << 20, np.int32)
     tb.reset_launch_counts()
-    out = SampleSort(VirtualMesh(8)).sort(x)
+    rk.reset_launch_counts()
+    out = SampleSort(VirtualMesh(8)).sort(x, exchange=exchange)
     np.testing.assert_array_equal(out, np.sort(x))
-    assert all(tb.launch_counts().values()), tb.launch_counts()
+    counts = tb.launch_counts()
+    assert all(counts[name] for name in tb.WRAPPERS), counts
+    assert rk.launch_counts()["ring_exchange_kernel"] == (exchange == "fused")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["alltoall", "ring", "fused"])
+def test_sort_kv_on_cuda(cuda, exchange):
+    from dsort_tpu_torch.data.ingest import gen_terasort
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    keys, payload = gen_terasort(1 << 20, seed=5)
+    keys[:50] = np.iinfo(np.uint64).max  # sentinel-valued keys keep their payloads
+    tb.reset_launch_counts()
+    rk.reset_launch_counts()
+    ko, vo = SampleSort(VirtualMesh(8)).sort_kv(keys, payload, exchange=exchange)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ko, keys[order])
+    tail = len(keys) - 50
+    np.testing.assert_array_equal(vo[:tail], payload[order][:tail])
+    assert sorted(map(bytes, vo[tail:])) == sorted(map(bytes, payload[order][tail:]))
+    assert tb.launch_counts()["bitonic_global_stage_kernel+rank"] > 0
+    assert rk.launch_counts()["gather_rows_kernel"] == (exchange == "fused")
+
+
+@pytest.mark.cuda
+def test_seven_shards_on_cuda(cuda):
+    """A non-power-of-two mesh on the card: whole sentinel slots in the
+    fused merge layout, for keys and records."""
+    from dsort_tpu_torch.data.ingest import gen_terasort
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    rng = np.random.default_rng(12)
+    ss = SampleSort(VirtualMesh(7))
+    x = _keys(rng, 700_001, np.int64)
+    for exchange in ("ring", "fused"):
+        np.testing.assert_array_equal(ss.sort(x, exchange=exchange), np.sort(x))
+    keys, payload = gen_terasort(300_001, seed=6)
+    ko, vo = ss.sort_kv(keys, payload, exchange="fused")
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ko, keys[order])
+    np.testing.assert_array_equal(vo, payload[order])

@@ -189,7 +189,7 @@ def test_job_config_from_dict_and_validation():
         JaxJobConfig(oversample=16, capacity_factor=2.0, max_capacity_retries=1)
     ))
     assert (job.oversample, job.capacity_factor, job.max_capacity_retries) == (16, 2.0, 1)
-    for bad in (dict(exchange="ring"), dict(local_kernel="radix"),
+    for bad in (dict(exchange="hier"), dict(local_kernel="radix"),
                 dict(merge_kernel="bitonic"), dict(exchange="nope"),
                 dict(oversample=0), dict(capacity_factor=0.5)):
         with pytest.raises(ConfigError):
