@@ -24,9 +24,17 @@ Phases (any failure raises, so the exit code is non-zero):
    ``sort_kv`` of 2^23 TeraSort records under all three exchanges, 2^22
    zipf records under ``fused`` (record multiset per key), and ``cli
    terasort`` on a 2^20-record file (byte-identical to numpy's order);
+   ``local_kernel="pallas"`` (the tile kernel in phase 1 and phase 5) at
+   2^26 int32 under ``alltoall`` and ``ring`` and 2^24 zipf int64 under
+   ``alltoall``, with the default path's per-shard counts;
+   ``merge_kernel="bitonic"`` at 2^24 int32 and for 2^23 records;
+   ``pallas_sort_kv`` on 2^23 TeraSort and 2^22 zipf records (stable);
+   ``cli run --kernel pallas``;
 5. timings at the main path's shapes: each kernel, its plain version and
    the nearest torch call (``library_ms``), the bound; the host-to-host
-   sorts under each exchange; records/s of ``sort_kv``; device traces.
+   sorts under each exchange and under ``pallas`` against ``auto``;
+   ``pallas_sort`` / ``pallas_sort_kv`` against ``torch.sort``; records/s
+   of ``sort_kv``; device traces.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -52,6 +60,7 @@ ALU_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores (data she
 SOURCES = {
     "block": "dsort_tpu_torch/csrc/block_sort.cu",
     "ring": "dsort_tpu_torch/csrc/ring_exchange.cu",
+    "tile": "dsort_tpu_torch/csrc/tile_sort.cu",
 }
 REPLACES = {
     "bitonic_tile_kernel":
@@ -68,6 +77,9 @@ REPLACES = {
     "gather_rows_kernel":
         "dsort_tpu/ops/ring_kernel.py:356 (R2 _fused_ring_kv_kernel, in-kernel "
         "payload placement :467-477)",
+    "tile_sort_kernel": "dsort_tpu/ops/pallas_sort.py:37 (S1 _tile_bitonic_kernel)",
+    "tile_sort_kv_kernel": "dsort_tpu/ops/pallas_sort.py:106 (S2 _tile_bitonic_kv_kernel)",
+    "radix_histogram_kernel": "dsort_tpu/ops/pallas_sort.py:223 (S3 _tile_histogram_kernel)",
 }
 RANK = "+rank"
 
@@ -189,10 +201,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from dsort_tpu_torch import cli
+    from dsort_tpu_torch.config import JobConfig
     from dsort_tpu_torch.data import ingest
     from dsort_tpu_torch.data.partition import pad_kv_to_shards, pad_to_shards
     from dsort_tpu_torch.ops import _build
     from dsort_tpu_torch.ops import block_sort as tb
+    from dsort_tpu_torch.ops import pallas_sort as ps
     from dsort_tpu_torch.ops import ring_kernel as rk
     from dsort_tpu_torch.ops.float_order import float_to_ordered_int, to_signed_keys
     from dsort_tpu_torch.parallel import exchange as ex
@@ -213,9 +227,10 @@ def main() -> int:
     def reset():
         tb.reset_launch_counts()
         rk.reset_launch_counts()
+        ps.reset_launch_counts()
 
     def counts():
-        return {**tb.launch_counts(), **rk.launch_counts()}
+        return {**tb.launch_counts(), **rk.launch_counts(), **ps.launch_counts()}
 
     # 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -224,6 +239,8 @@ def main() -> int:
     _build.library()
     log(f"build: {lib_path.name} ({len(_build.sources())} sources) {nvcc}, total with "
         f"load {time.perf_counter() - t0:.2f} s")
+    if sorted(str(p.relative_to(ROOT)) for p in _build.sources()) != sorted(SOURCES.values()):
+        raise AssertionError(f"built sources {_build.sources()} are not {SOURCES}")
 
     # 2. kernel vs plain at the main path's shapes ---------------------------
     n32, n64, nrec = 1 << 26, 1 << 24, 1 << 23
@@ -322,6 +339,46 @@ def main() -> int:
          lambda: (rk.gather_rows(wv, tags),), lambda: (rk.gather_rows_plain(wv, tags),))
     del wk
 
+    # S1 / S2 at the default tile (256 x 128 keys): int32 keys fit one CTA,
+    # int64 keys and every key+index tile take the 2-CTA cluster route.  Own
+    # generator, so the data of the phases above and below stay as they were.
+    srng = np.random.default_rng(3)
+    TR = 256
+    for dtype, (rows, row_len) in shapes.items():
+        x = torch.from_numpy(random_keys(srng, (rows, row_len), dtype)).to(dev)
+        hold("tile_sort_kernel", f"{np.dtype(dtype).name} {rows}x{row_len} tile_rows={TR} "
+             f"({ps.cluster_size(TR, x.dtype)} CTA per tile)",
+             lambda: (ps.tile_sort(x.clone(), TR),), lambda: (ps.tile_sort_plain(x.clone(), TR),))
+        del x
+    for dtype in (np.int32, np.int64):  # the padded shape of 2^23 records, many ties
+        k = torch.from_numpy(random_keys(srng, nrec, dtype) % 4096).to(dev)
+        v = torch.randperm(nrec, device=dev, dtype=torch.int32)
+        hold("tile_sort_kv_kernel", f"{np.dtype(dtype).name}+int32 index n=2^23 tile_rows={TR} "
+             f"({ps.cluster_size(TR, k.dtype, kv=True)} CTAs per tile)",
+             lambda: ps.tile_sort_kv(k.clone(), v.clone(), TR),
+             lambda: ps.tile_sort_kv_plain(k.clone(), v.clone(), TR))
+        del k, v
+    # S3: each digit histogram equal to its plain version, to torch.bincount
+    # of the digits, and summing to n.
+    hist_in = {np.int32: torch.from_numpy(random_keys(srng, n32, np.int32)).to(dev),
+               np.int64: torch.from_numpy(random_keys(srng, n64, np.int64)).to(dev)}
+    for dtype, xh in hist_in.items():
+        for shift, bits in ((0, 8), (8, 8), (24, 8), (0, 4), (56, 8)):
+            if shift >= 32 and dtype == np.int32:
+                continue
+            hold("radix_histogram_kernel", f"{np.dtype(dtype).name} n={xh.numel()} shift={shift} "
+                 f"bits={bits}", lambda: (ps.radix_histogram(xh, shift, bits),),
+                 lambda: (ps.radix_histogram_plain(xh, shift, bits),))
+            h = ps.radix_histogram(xh, shift, bits)
+            ref = torch.bincount(((xh >> shift) & ((1 << bits) - 1)).long(), minlength=1 << bits)
+            if not (torch.equal(h.long(), ref) and int(h.sum()) == xh.numel()):
+                raise AssertionError(f"radix_histogram {shift},{bits}: not torch.bincount's")
+    reset()
+    ps.radix_histogram(hist_in[np.int32], 0, 8)
+    hist_launches = counts()["radix_histogram_kernel"]
+    if hist_launches != 1:
+        raise AssertionError(f"radix_histogram: {hist_launches} launches, expected 1")
+
     # 3. whole sorts against torch.sort ---------------------------------------
     for dtype, n in ((np.int32, 1 << 24), (np.int32, n32), (np.int64, n64)):
         x = torch.from_numpy(random_keys(rng, n, dtype)).to(dev)
@@ -349,11 +406,14 @@ def main() -> int:
             raise AssertionError(f"{label}: kernels of the path not launched: {missing} {got}")
         return {k: v for k, v in got.items() if v}
 
-    def drive(label, data, reference, metrics=None, exchange=None):
-        need = keys_path | (ring_kernels if exchange == "fused" else set())
+    def drive(label, data, reference, metrics=None, exchange=None, sorter=None, need=None):
+        """One main-path sort; returns its launches and per-shard counts."""
+        sorter = sorter or ss
+        if need is None:
+            need = keys_path | (ring_kernels if exchange == "fused" else set())
         reset()
         t0 = time.perf_counter()
-        out = ss.sort(data, metrics, exchange=exchange)
+        out = sorter.sort(data, metrics, exchange=exchange)
         wall = time.perf_counter() - t0
         got = launched(label, need)
         if not same_bits(out, reference):
@@ -362,16 +422,17 @@ def main() -> int:
         keys = data
         if data.dtype.kind == "f":  # sort_ranges takes the mapped keys
             keys = float_to_ordered_int(torch.from_numpy(data)).numpy()
-        log(f"  per-shard counts {[len(r) for r in ss.sort_ranges(keys, exchange=exchange)]}")
-        return got
+        shard_counts = [len(r) for r in sorter.sort_ranges(keys, exchange=exchange)]
+        log(f"  per-shard counts {shard_counts}")
+        return got, shard_counts
 
     ref32 = np.sort(x32)
-    main_launches = drive("uniform int32 n=2^26", x32, ref32)
+    main_launches, counts32 = drive("uniform int32 n=2^26", x32, ref32)
 
     z = np.minimum(rng.zipf(1.3, n64), np.iinfo(np.int64).max).astype(np.int64)
     refz = np.sort(z)
     m = Metrics()
-    drive("zipf(1.3) int64 n=2^24", z, refz, m)
+    _, countsz = drive("zipf(1.3) int64 n=2^24", z, refz, m)
     retries = m.counters.get("capacity_retries", 0)
     log(f"  capacity_retries={retries}")
     if retries < 1:
@@ -399,6 +460,16 @@ def main() -> int:
     if dst.read_bytes() != "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode():
         raise AssertionError("cli output differs from the numpy-formatted sorted file")
     log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, launches {got}")
+    reset()
+    t0 = time.perf_counter()
+    if cli.main(["run", str(src), "-o", str(dst), "--kernel", "pallas"]) != 0:
+        raise AssertionError("cli run --kernel pallas failed")
+    wall = time.perf_counter() - t0
+    got = launched("cli run --kernel pallas", {"tile_sort_kernel"})
+    if dst.read_bytes() != "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode():
+        raise AssertionError("cli run --kernel pallas output differs from sort -n order")
+    log(f"main cli run --kernel pallas 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, "
+        f"launches {got}")
 
     # Keys through the ring: no retry, one exchange launch per fused sort.
     ring_launches = {}
@@ -406,7 +477,7 @@ def main() -> int:
                              ("zipf(1.3) int64 n=2^24", z, refz)):
         for exchange in ("ring", "fused"):
             m = Metrics(journal=Journal())
-            got = drive(f"{label} exchange={exchange}", data, ref, m, exchange)
+            got, _ = drive(f"{label} exchange={exchange}", data, ref, m, exchange)
             if m.counters.get("capacity_retries", 0):
                 raise AssertionError(f"{label} {exchange}: capacity retry on the ring")
             if exchange == "fused" and (
@@ -419,6 +490,38 @@ def main() -> int:
                 f"{skew['max_mean_ratio']}, counters {dict(m.counters)}")
             if exchange == "fused" and label.startswith("uniform"):
                 ring_launches = got
+
+    # local_kernel="pallas": phase 1 sorts through the tile kernel and, the
+    # combine resolving to the flat re-sort, so does phase 5 — two tile
+    # launches per alltoall attempt; the default path's bits and counts.
+    ss_pallas = SampleSort(mesh, JobConfig(local_kernel="pallas"))
+    pallas_launches = {}
+    for label, data, ref, want_counts, exchange in (
+        ("uniform int32 n=2^26", x32, ref32, counts32, "alltoall"),
+        ("uniform int32 n=2^26", x32, ref32, counts32, "ring"),
+        ("zipf(1.3) int64 n=2^24", z, refz, countsz, "alltoall"),
+    ):
+        m = Metrics()
+        got, shard_counts = drive(f"{label} local_kernel=pallas exchange={exchange}", data, ref,
+                                  m, exchange, ss_pallas, {"tile_sort_kernel"})
+        if shard_counts != want_counts:
+            raise AssertionError(f"{label} pallas {exchange}: per-shard counts differ from auto's")
+        attempts = m.counters.get("capacity_retries", 0) + 1
+        if got["tile_sort_kernel"] != 2 * attempts:
+            raise AssertionError(f"{label} pallas {exchange}: {got['tile_sort_kernel']} tile "
+                                 f"launches over {attempts} attempt(s), expected 2 each")
+        if label.startswith("zipf") and attempts < 2:
+            raise AssertionError("zipf int64 under pallas did not take the capacity retry")
+        log(f"  equal to the default path's bits and per-shard counts; {attempts} attempt(s)")
+        if exchange == "alltoall" and label.startswith("uniform"):
+            pallas_launches = got
+    # merge_kernel="bitonic": the received runs merged by the bitonic tree.
+    x24 = x32[: 1 << 24]
+    ref24 = np.sort(x24)
+    ss_mb = SampleSort(mesh, JobConfig(local_kernel="lax", merge_kernel="bitonic"))
+    for exchange in ("alltoall", "ring"):
+        drive(f"int32 n=2^24 merge_kernel=bitonic exchange={exchange}", x24, ref24, None,
+              exchange, ss_mb, set())
 
     # Records: 2^23 TeraSort records under every exchange.
     if len(np.unique(tk)) != nrec:
@@ -463,6 +566,38 @@ def main() -> int:
         raise AssertionError("zipf records: a record moved away from its key")
     log(f"main sort_kv 2^22 zipf(1.3) uint64 records exchange=fused: keys equal np.sort, "
         f"every record kept with its key ({len(np.unique(zk))} distinct keys)")
+
+    # The bitonic kv merge tree: 2^23 TeraSort records (unique keys) give
+    # exactly the default path's records.
+    reset()
+    t0 = time.perf_counter()
+    ok, ov = SampleSort(mesh, JobConfig(merge_kernel="bitonic")).sort_kv(
+        tk, tv, exchange="alltoall")
+    wall = time.perf_counter() - t0
+    if not (np.array_equal(ok, ref_k) and np.array_equal(ov, ref_v)):
+        raise AssertionError("sort_kv merge_kernel=bitonic: records differ")
+    log(f"main sort_kv 2^23 TeraSort records merge_kernel=bitonic exchange=alltoall: "
+        f"the default path's records, {wall * 1e3:.1f} ms wall")
+
+    # pallas_sort_kv: stable, so payloads follow the stable argsort exactly,
+    # repeated keys included.
+    kv_tile_launches = {}
+    for label, keys, rows in (("2^23 TeraSort records", tk, tv), ("2^22 zipf(1.3) uint64", zk, zv)):
+        kd, rd = torch.from_numpy(keys).to(dev), torch.from_numpy(rows).to(dev)
+        reset()
+        t0 = time.perf_counter()
+        got_k, got_v = ps.pallas_sort_kv(kd, rd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = launched(f"pallas_sort_kv {label}", {"tile_sort_kv_kernel"})
+        kv_tile_launches = kv_tile_launches or got
+        order = np.argsort(keys, kind="stable")
+        if not (np.array_equal(got_k.cpu().numpy(), keys[order])
+                and np.array_equal(got_v.cpu().numpy(), rows[order])):
+            raise AssertionError(f"pallas_sort_kv {label}: not the stable order")
+        log(f"main pallas_sort_kv {label}: keys equal np.sort, payloads equal the stable "
+            f"argsort order, {wall * 1e3:.1f} ms wall, launches {got}")
+        del kd, rd, got_k, got_v
 
     # The TeraSort job: cli terasort on 2^20 records.
     ck, cv = ingest.gen_terasort(1 << 20, seed=2)
@@ -566,9 +701,54 @@ def main() -> int:
           f"{tuple(wv.shape)} uint8, library torch.index_select")
     del wv, wt, tags, flat_rows, flat_idx, vs_plan, ks_plan
 
+    # S1-S3 at their main-path shapes: the pallas sort's phase-1 tiles (8 x
+    # 2^23 int32), the 2^23-record key+index tiles (uint64 keys as int64),
+    # the 2^26 int32 digit histogram.
+    tile = TR * ps.LANES
+    log_s = tile.bit_length() - 1
+    stages_s = log_s * (log_s + 1) // 2  # 120 at 32,768 keys
+    xs1 = torch.from_numpy(random_keys(srng, (rows, row_len), np.int32)).to(dev)
+    entry("tile_sort_kernel", SOURCES["tile"], pallas_launches["tile_sort_kernel"],
+          lambda: ps.tile_sort(xs1, TR), lambda: ps.tile_sort_plain(xs1, TR),
+          lambda: torch.sort(xs1.view(-1, tile), dim=-1), 2 * n * 4, n * stages_s,
+          f"int32 {rows}x{row_len}, library torch.sort of the {tile}-key tile rows")
+    del xs1
+    ks2 = to_signed_keys(torch.from_numpy(tk).to(dev))
+    vs2 = torch.arange(nrec, dtype=torch.int32, device=dev)
+    entry("tile_sort_kv_kernel", SOURCES["tile"], kv_tile_launches["tile_sort_kv_kernel"],
+          lambda: ps.tile_sort_kv(ks2, vs2, TR), lambda: ps.tile_sort_kv_plain(ks2, vs2, TR),
+          lambda: torch.sort(ks2.view(-1, tile), dim=-1, stable=True), 2 * nrec * 12,
+          nrec * stages_s, f"int64+int32 n=2^23, library stable torch.sort of the tile rows")
+    xh = hist_in[np.int32]
+    entry("radix_histogram_kernel", SOURCES["tile"], hist_launches,
+          lambda: ps.radix_histogram(xh, 0, 8), lambda: ps.radix_histogram_plain(xh, 0, 8),
+          lambda: torch.bincount((xh & 255).long(), minlength=256), n32 * 4 + 256 * 4,
+          2 * n32, "int32 n=2^26 shift=0 bits=8, library torch.bincount of the digits")
+    x64t = torch.from_numpy(random_keys(srng, shapes[np.int64], np.int64)).to(dev)
+    c64_ms = cuda_ms(lambda: ps.tile_sort(x64t, TR))
+    c64_bound, _ = bound_ms(2 * n64 * 8, n64 * stages_s)
+    log(f"time tile_sort_kernel int64 {shapes[np.int64]} (2-CTA clusters): {c64_ms:.4f} ms, "
+        f"bound {c64_bound:.4f} ms, torch.sort of the tile rows "
+        f"{cuda_ms(lambda: torch.sort(x64t.view(-1, tile), dim=-1)):.4f} ms [{card}]")
+    del x64t, hist_in, xh
+
     xf = torch.from_numpy(x32).to(dev)
-    bs_ms = cuda_ms(lambda: tb.block_sort(xf), reps=5)
+    p_ms = cuda_ms(lambda: ps.pallas_sort(xf), reps=3, warmup=1)
     ts_ms = cuda_ms(lambda: torch.sort(xf), reps=5)
+    log(f"time pallas_sort int32 n=2^26 (1-D: 2048 tiles, 11 merge levels): {p_ms:.3f} ms, "
+        f"torch.sort {ts_ms:.3f} ms [{card}]")
+    tkd, tvd = torch.from_numpy(tk).to(dev), torch.from_numpy(tv).to(dev)
+
+    def stable_sort_kv():
+        k, perm = torch.sort(to_signed_keys(tkd), stable=True)
+        return k, tvd.index_select(0, perm)
+
+    pk_ms = cuda_ms(lambda: ps.pallas_sort_kv(tkd, tvd), reps=3, warmup=1)
+    sk_ms = cuda_ms(stable_sort_kv, reps=5)
+    log(f"time pallas_sort_kv 2^23 TeraSort records: {pk_ms:.3f} ms, stable torch.sort + "
+        f"index_select {sk_ms:.3f} ms [{card}]")
+    del tkd, tvd, ks2, vs2
+    bs_ms = cuda_ms(lambda: tb.block_sort(xf), reps=5)
     log(f"time block_sort int32 n=2^26: {bs_ms:.3f} ms ({n32 / bs_ms / 1e6:.3f} Gkeys/s), "
         f"torch.sort {ts_ms:.3f} ms ({n32 / ts_ms / 1e6:.3f} Gkeys/s) [{card}]")
     del xf
@@ -591,6 +771,16 @@ def main() -> int:
     log(f"  library_ms (torch.sort of 2^26 int32 on device) {ts_ms:.3f} ms [{card}]")
     by_exchange("SampleSort(VirtualMesh(8)).sort_kv 2^23 records",
                 lambda e: ss.sort_kv(tk, tv, exchange=e), "Mrec/s", nrec / 1e3)
+    # local_kernel="pallas" against "auto", alltoall, in turns (A B B A).
+    turns = []
+    for name, sorter in (("auto", ss), ("pallas", ss_pallas), ("pallas", ss_pallas), ("auto", ss)):
+        turns += [(name, t) for t in host_times(lambda: sorter.sort(x32), 2)]
+    for name in ("auto", "pallas"):
+        ts = [t for k, t in turns if k == name]
+        ms = float(np.median(ts))
+        log(f"time SampleSort(VirtualMesh(8)).sort int32 n=2^26 local_kernel={name} alltoall "
+            f"host-to-host: {ms:.3f} ms median of {len(ts)} ({n32 / ms / 1e6:.3f} Gkeys/s; "
+            f"runs {[round(t, 3) for t in ts]}) [{card}]")
 
     m = Metrics()
     ss.sort(x32, m)
@@ -602,6 +792,7 @@ def main() -> int:
     profile(lambda: ss.sort(x32), "SampleSort int32 n=2^26 alltoall", card)
     profile(lambda: ss.sort(x32, exchange="fused"), "SampleSort int32 n=2^26 fused", card)
     profile(lambda: ss.sort_kv(tk, tv, exchange="fused"), "sort_kv 2^23 records fused", card)
+    profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas", card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

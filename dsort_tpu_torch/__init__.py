@@ -6,18 +6,25 @@ tests hold every ported function against the JAX one on the same numpy
 input.  It imports ``torch`` and ``numpy`` only — nothing of JAX and
 nothing of ``dsort_tpu``.
 
-Ported so far (the main path of ``dsort run``, all_to_all exchange):
+Ported so far (``dsort run`` and the in-core ``dsort terasort`` in the
+default SPMD mode):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig`` (the fields the sample sort reads)
-  data/                ``partition`` / ``pad_to_shards``; one-int-per-line IO
+  data/                ``partition`` / ``pad_to_shards``; int and TeraSort IO
   ops/float_order.py   order-preserving float <-> signed-int bijection
-  ops/local_sort.py    ``sort_keys`` (torch.sort), kernel resolution, padding
+  ops/local_sort.py    ``sort_keys`` (torch.sort), kernel dispatch, padding,
+                       the key+payload sorts
   ops/block_sort.py    block-bitonic sort and run merge over the CUDA kernels
                        in ``csrc/block_sort.cu`` (plain PyTorch on the CPU)
+  ops/bitonic.py       the bitonic network and merge tree (plain PyTorch)
+  ops/pallas_sort.py   tile sort, stable key+index tile sort and radix
+                       histogram over ``csrc/tile_sort.cu``; ``pallas_sort``
+  ops/ring_kernel.py   the fused ring exchange over ``csrc/ring_exchange.cu``
   parallel/mesh.py     ``VirtualMesh``: P shards as rows of one tensor
+  parallel/exchange.py the ring schedule: measured caps, shifts, merge tower
   parallel/sample_sort.py  ``SampleSort`` (splitters, buckets, exchange, merge)
-  cli.py               ``python -m dsort_tpu_torch.cli run IN -o OUT``
+  cli.py               ``python -m dsort_tpu_torch.cli {run,terasort} IN -o OUT``
 """
 
 from dsort_tpu_torch.config import ConfigError, JobConfig

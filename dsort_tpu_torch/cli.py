@@ -8,12 +8,17 @@ Counterparts of ``dsort run`` in the default SPMD mode and of the in-core
 - ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records,
   ordered by the full 10-byte key (8-byte prefix, then key bytes 8-9 as
   the secondary key — which keeps the ``alltoall`` exchange).
+
+Both take ``--kernel`` (`JobConfig.local_kernel`) and ``--merge-kernel``
+(`JobConfig.merge_kernel`), as the JAX package's common flags do.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from dsort_tpu_torch.config import _LOCAL_PORTED, _MERGE_PORTED, JobConfig
 
 EXCHANGES = ("alltoall", "ring", "fused")
 
@@ -24,6 +29,10 @@ def _common(p: argparse.ArgumentParser, default_output: str) -> None:
     p.add_argument("--workers", type=int, default=8, help="virtual mesh shards")
     p.add_argument("--exchange", choices=EXCHANGES, default=None,
                    help="bucket exchange schedule (default: JobConfig's)")
+    p.add_argument("--kernel", choices=_LOCAL_PORTED, default="auto", help="local sort kernel")
+    p.add_argument("--merge-kernel", choices=_MERGE_PORTED, default="auto",
+                   help="post-exchange combine (default auto: block_merge wherever "
+                        "the block kernel applies)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 
@@ -44,7 +53,8 @@ def main(argv=None) -> int:
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort
 
-    ss = SampleSort(VirtualMesh(args.workers, args.device))
+    job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel)
+    ss = SampleSort(VirtualMesh(args.workers, args.device), job)
     if args.cmd == "run":
         out = ss.sort(ingest.read_ints_file(args.input), exchange=args.exchange)
         ingest.write_ints_file(args.output, out)

@@ -13,9 +13,9 @@ from typing import Any, Mapping
 
 # Every value the JAX package accepts, and the subset ported here.
 _LOCAL_KERNELS = ("auto", "lax", "block", "bitonic", "pallas", "radix")
-_LOCAL_PORTED = ("auto", "lax", "block")
+_LOCAL_PORTED = ("auto", "lax", "block", "bitonic", "pallas")
 _MERGE_KERNELS = ("auto", "sort", "bitonic", "block_merge")
-_MERGE_PORTED = ("auto", "sort", "block_merge")
+_MERGE_PORTED = ("auto", "sort", "bitonic", "block_merge")
 _EXCHANGES = ("alltoall", "ring", "fused", "hier")
 _EXCHANGE_PORTED = ("alltoall", "ring", "fused")
 
@@ -39,11 +39,17 @@ class JobConfig:
     """Per-job sort parameters.
 
     - ``local_kernel``: per-shard sort; ``lax`` is ``torch.sort`` here,
-      ``block`` the block-bitonic CUDA kernels, ``auto`` picks ``block`` for
-      integer keys of at least 2^16 on a CUDA tensor (`ops.local_sort`);
+      ``block`` the block-bitonic CUDA kernels, ``bitonic`` the plain
+      PyTorch bitonic network (`ops.bitonic`), ``pallas`` the tile-sort CUDA
+      kernel plus the bitonic merge tree (`ops.pallas_sort`); ``auto`` picks
+      ``block`` for integer keys of at least 2^16 on a CUDA tensor
+      (`ops.local_sort`), never ``bitonic`` or ``pallas``; ``radix`` is not
+      ported yet;
     - ``merge_kernel``: post-exchange combine; ``block_merge`` enters the
-      bitonic network at the run level, ``sort`` re-sorts flat, ``auto``
-      picks ``block_merge`` wherever the block kernel applies;
+      bitonic network at the run level, ``bitonic`` merges the received runs
+      with the bitonic merge tree, ``sort`` re-sorts flat through the local
+      kernel, ``auto`` picks ``block_merge`` wherever the block kernel
+      applies and ``sort`` elsewhere;
     - ``oversample``: splitter candidates per shard;
     - ``capacity_factor``: per-(src, dst) bucket headroom over n/P;
     - ``max_capacity_retries``: measured-capacity retries after an overflow;

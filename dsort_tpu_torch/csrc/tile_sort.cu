@@ -1,0 +1,300 @@
+// Tile sort and radix histogram kernels for Hopper (sm_90a), plain C interface.
+//
+// The CUDA counterparts of the three Pallas kernels of
+// dsort_tpu/ops/pallas_sort.py:
+//
+//   tile_sort_kernel<K>        S1 _tile_bitonic_kernel (pallas_sort.py:37)
+//   tile_sort_kv_kernel<K>     S2 _tile_bitonic_kv_kernel (pallas_sort.py:106)
+//   radix_histogram_kernel<K>  S3 _tile_histogram_kernel (pallas_sort.py:223)
+//
+// S1 / S2 sort every consecutive tile of T keys (T = tile_rows * 128, a
+// power of two) ascending with the whole bitonic network: levels
+// k = 2..T, distances j = k/2..1, the pair (i, i + j) of in-tile indices
+// ordered ascending iff bit k of i is clear.  The reference's row-major
+// (rows, 128) VMEM layout is the flat in-tile index here, so the network and
+// its result are the same.  S2 carries an int32 index beside each key and
+// orders pairs by (key, index); one thread owns both members of a pair and
+// decides the swap from (first, second) alone, so equal keys can never
+// duplicate or lose an index (pallas_sort.py:108-114).
+//
+// A tile that does not fit one CTA's shared memory (227 KB) is held by a
+// thread-block cluster of C CTAs (a power of two up to 8), each holding a
+// contiguous 1/C of the tile.  A stage whose distance j is at least the
+// per-CTA length L = T / C pairs CTA r with CTA r ^ (j / L) at the same local
+// offset: the lower CTA of the two orders both members through distributed
+// shared memory, between two cluster barriers.  At C = 2 that is one stage
+// of the whole network (k = T, j = T / 2); every other stage is local.
+//
+// Every entry point launches on the caller's stream, allocates nothing, and
+// returns the launch's cudaError_t (0 on success).
+
+#include <cooperative_groups.h>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kTileThreads = 1024;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory of one CTA on sm_90
+constexpr int kMaxCluster = 8;    // portable cluster size
+constexpr int kHistThreads = 256;
+constexpr int kSharedHistBits = 13;  // 32 KB of int32 buckets in shared memory
+
+// Orders (a, va) and (b, vb) ascending (asc) or descending, in place.
+template <typename K, bool V>
+__device__ __forceinline__ void order_pair(K* a, K* b, int32_t* va, int32_t* vb,
+                                           bool asc) {
+  const K x = *a, y = *b;
+  if constexpr (!V) {
+    const K lo = x < y ? x : y;
+    const K hi = x < y ? y : x;
+    *a = asc ? lo : hi;
+    *b = asc ? hi : lo;
+  } else {
+    const int32_t u = *va, w = *vb;
+    const bool first_gt = x > y || (x == y && u > w);
+    const bool second_gt = y > x || (x == y && w > u);
+    if (asc ? first_gt : second_gt) {
+      *a = y;
+      *b = x;
+      *va = w;
+      *vb = u;
+    }
+  }
+}
+
+// Copies n elements between global and shared memory with 16-byte accesses
+// where the global address and the byte count allow them.
+template <typename T>
+__device__ __forceinline__ void copy_run(T* dst, const T* src, int n) {
+  const int nbytes = n * static_cast<int>(sizeof(T));
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
+      (nbytes & 15) == 0) {
+    const int4* s4 = reinterpret_cast<const int4*>(src);
+    int4* d4 = reinterpret_cast<int4*>(dst);
+    for (int t = threadIdx.x; t < (nbytes >> 4); t += blockDim.x) d4[t] = s4[t];
+  } else {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
+  }
+}
+
+// The whole network on one tile, in place.  CTA `rank` of a cluster of C
+// holds keys [rank * L, (rank + 1) * L) of tile blockIdx.x / C.
+template <typename K, bool V>
+__device__ __forceinline__ void tile_network(K* __restrict__ x, int32_t* __restrict__ v,
+                                             int T, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = T / C;
+  K* s = reinterpret_cast<K*>(smem_raw);
+  int32_t* sv = reinterpret_cast<int32_t*>(s + L);
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const long long base =
+      static_cast<long long>(blockIdx.x / C) * T + static_cast<long long>(rank) * L;
+  copy_run(s, x + base, L);
+  if constexpr (V) copy_run(sv, v + base, L);
+  __syncthreads();
+  const int g0 = rank * L;  // in-tile index of s[0]
+  int32_t dummy_a = 0, dummy_b = 0;
+  for (int k = 2; k <= T; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j < L) {
+        for (int q = threadIdx.x; q < (L >> 1); q += blockDim.x) {
+          const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+          const bool asc = ((g0 + i) & k) == 0;
+          if constexpr (V)
+            order_pair<K, V>(s + i, s + i + j, sv + i, sv + i + j, asc);
+          else
+            order_pair<K, V>(s + i, s + i + j, &dummy_a, &dummy_b, asc);
+        }
+        __syncthreads();
+        continue;
+      }
+      // The partner half lies in CTA rank ^ (j / L) at the same offsets.
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      if ((rank & (j / L)) == 0) {
+        const int partner = rank ^ (j / L);
+        K* ps = cluster.map_shared_rank(s, partner);
+        int32_t* psv = cluster.map_shared_rank(sv, partner);
+        for (int t = threadIdx.x; t < L; t += blockDim.x) {
+          const bool asc = ((g0 + t) & k) == 0;
+          if constexpr (V)
+            order_pair<K, V>(s + t, ps + t, sv + t, psv + t, asc);
+          else
+            order_pair<K, V>(s + t, ps + t, &dummy_a, &dummy_b, asc);
+        }
+      }
+      cluster.sync();
+    }
+  }
+  copy_run(x + base, s, L);
+  if constexpr (V) copy_run(v + base, sv, L);
+}
+
+// S1.  Bound: each key is read and written once (2 T sizeof(K) HBM bytes a
+// tile); the log2(T)(log2(T)+1)/2 stages (120 at T = 32768) run out of
+// shared memory, one barrier each, so the limit on this card is
+// shared-memory bandwidth and the barriers, not HBM.  Design: one tile per
+// CTA (or per cluster), 1024 threads owning L / 2048 pairs each per stage;
+// the network is the reference's, unchanged.
+template <typename K>
+__global__ void __launch_bounds__(kTileThreads) tile_sort_kernel(K* x, int T, int C) {
+  tile_network<K, false>(x, nullptr, T, C);
+}
+
+// S2.  Bound and design as S1, with the int32 index plane beside the keys
+// (T (sizeof(K) + 4) bytes a tile: every tile at T = 32768 needs a cluster).
+template <typename K>
+__global__ void __launch_bounds__(kTileThreads) tile_sort_kv_kernel(K* x, int32_t* v, int T,
+                                                                    int C) {
+  tile_network<K, true>(x, v, T, C);
+}
+
+// The radix digit (x >> shift) & (2^bits - 1): an arithmetic shift for
+// signed keys (sign fill from the top bit once shift >= width, as JAX's and
+// torch's >> do), a logical one for unsigned keys.
+template <typename K>
+__device__ __forceinline__ int radix_digit(K x, int shift, unsigned int mask) {
+  constexpr int width = 8 * sizeof(K);
+  if constexpr (static_cast<K>(-1) < static_cast<K>(0)) {
+    return static_cast<int>(static_cast<unsigned int>(x >> (shift < width ? shift : width - 1)) &
+                            mask);
+  } else {
+    return shift < width ? static_cast<int>(static_cast<unsigned int>(x >> shift) & mask) : 0;
+  }
+}
+
+// S3.  Bound: the input is read once (n sizeof(K) bytes) and 2^bits int32
+// counts written.  The TPU kernel counts with a compare+reduce per bucket
+// over each tile, carried across its sequential grid; blocks here run in
+// parallel, so each CTA strides over the input, counts into a shared-memory
+// histogram with shared atomics and adds its non-zero buckets to the zeroed
+// output with global atomics.  Beyond 2^13 buckets the counts go to global
+// atomics straight.  The ragged edge is masked, so no pads and no pad
+// correction; integer atomics give exact counts in any order.
+template <typename K>
+__global__ void __launch_bounds__(kHistThreads)
+    radix_histogram_kernel(const K* __restrict__ x, long long n, int shift, int bits,
+                           int32_t* __restrict__ out) {
+  extern __shared__ int32_t hist[];
+  const int buckets = 1 << bits;
+  const unsigned int mask = static_cast<unsigned int>(buckets - 1);
+  const bool shared = bits <= kSharedHistBits;
+  if (shared) {
+    for (int b = threadIdx.x; b < buckets; b += blockDim.x) hist[b] = 0;
+    __syncthreads();
+  }
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const int d = radix_digit<K>(x[i], shift, mask);
+    if (shared)
+      atomicAdd(hist + d, 1);
+    else
+      atomicAdd(out + d, 1);
+  }
+  if (shared) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < buckets; b += blockDim.x)
+      if (hist[b] != 0) atomicAdd(out + b, hist[b]);
+  }
+}
+
+// Launches `kernel` over `tiles` tiles, C CTAs per tile as one cluster.
+template <typename... Params, typename... Args>
+int launch_tiles(void (*kernel)(Params...), long long tiles, int T, int C, int key_bytes,
+                 void* stream, Args... args) {
+  if (T < 2 || (T & (T - 1)) != 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0 ||
+      T % C != 0 || T / C < 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = static_cast<long long>(T / C) * key_bytes;
+  if (smem > kMaxSmem || tiles * C > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles == 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int half = T / C / 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(tiles * C));
+  cfg.blockDim = dim3(half < kTileThreads ? half : kTileThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int launch_histogram(const void* x, long long n, int shift, int bits, void* out, void* stream) {
+  if (bits < 0 || bits > 30 || shift < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long want = (n + kHistThreads - 1) / kHistThreads;
+  const long long most = static_cast<long long>(sms) * 8;
+  const unsigned int blocks = static_cast<unsigned int>(want < most ? want : most);
+  const size_t smem = bits <= kSharedHistBits ? (static_cast<size_t>(1) << bits) * 4 : 0;
+  radix_histogram_kernel<K><<<blocks, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const K*>(x), n, shift, bits, static_cast<int32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// `tiles` tiles of T keys each, contiguous from `x` (and `v`), sorted in
+// place by clusters of C CTAs.
+extern "C" {
+
+int dsort_tile_sort_i32(void* x, long long tiles, int T, int C, void* stream) {
+  return launch_tiles(tile_sort_kernel<int32_t>, tiles, T, C, 4, stream,
+                      static_cast<int32_t*>(x), T, C);
+}
+
+int dsort_tile_sort_i64(void* x, long long tiles, int T, int C, void* stream) {
+  return launch_tiles(tile_sort_kernel<int64_t>, tiles, T, C, 8, stream,
+                      static_cast<int64_t*>(x), T, C);
+}
+
+int dsort_tile_sort_kv_i32(void* x, void* v, long long tiles, int T, int C, void* stream) {
+  return launch_tiles(tile_sort_kv_kernel<int32_t>, tiles, T, C, 8, stream,
+                      static_cast<int32_t*>(x), static_cast<int32_t*>(v), T, C);
+}
+
+int dsort_tile_sort_kv_i64(void* x, void* v, long long tiles, int T, int C, void* stream) {
+  return launch_tiles(tile_sort_kv_kernel<int64_t>, tiles, T, C, 12, stream,
+                      static_cast<int64_t*>(x), static_cast<int32_t*>(v), T, C);
+}
+
+// Adds the digit counts of n keys to `out` (2^bits int32, zeroed by the caller).
+int dsort_radix_histogram_i32(const void* x, long long n, int shift, int bits, void* out,
+                              void* stream) {
+  return launch_histogram<int32_t>(x, n, shift, bits, out, stream);
+}
+
+int dsort_radix_histogram_i64(const void* x, long long n, int shift, int bits, void* out,
+                              void* stream) {
+  return launch_histogram<int64_t>(x, n, shift, bits, out, stream);
+}
+
+int dsort_radix_histogram_u32(const void* x, long long n, int shift, int bits, void* out,
+                              void* stream) {
+  return launch_histogram<uint32_t>(x, n, shift, bits, out, stream);
+}
+
+int dsort_radix_histogram_u64(const void* x, long long n, int shift, int bits, void* out,
+                              void* stream) {
+  return launch_histogram<uint64_t>(x, n, shift, bits, out, stream);
+}
+
+}  // extern "C"

@@ -56,6 +56,14 @@ SIGNATURES = {
     },
     # (ws, tags, out, rows, total, tag_stride, row_bytes, stream)
     "dsort_gather_rows": (_P, _P, _P, _LL, _LL, _LL, _LL, _P),
+    # (keys, tiles, T, cluster, stream) / (keys, index, tiles, T, cluster, stream)
+    **{f"dsort_tile_sort_{s}": (_P, _LL, _I, _I, _P) for s in ("i32", "i64")},
+    **{f"dsort_tile_sort_kv_{s}": (_P, _P, _LL, _I, _I, _P) for s in ("i32", "i64")},
+    # (x, n, shift, bits, out, stream)
+    **{
+        f"dsort_radix_histogram_{s}": (_P, _LL, _I, _I, _P, _P)
+        for s in ("i32", "i64", "u32", "u64")
+    },
 }
 
 _lock = threading.Lock()

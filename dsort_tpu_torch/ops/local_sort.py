@@ -1,8 +1,11 @@
-"""Per-shard local sort: ``torch.sort`` and the block-bitonic kernel dispatch.
+"""Per-shard local sort: ``torch.sort`` and the local kernel dispatch.
 
 Counterpart of ``dsort_tpu/ops/local_sort.py``.  ``lax.sort`` is XLA's own
 sort, not a Pallas kernel, so its fair counterpart here is ``torch.sort``
-(the ``lax`` kernel name is kept so configs carry across unchanged).
+(the ``lax`` kernel name is kept so configs carry across unchanged).  The
+other kernels: ``block`` (`ops.block_sort`), ``bitonic`` (`ops.bitonic`,
+plain PyTorch as the reference's is jnp) and ``pallas`` (`ops.pallas_sort`,
+the tile kernel plus the bitonic merge tree); ``radix`` is not ported yet.
 
 Shapes: every function takes a 1-D tensor or a 2-D batch of rows and works
 along the last axis, so the P shards of a `parallel.mesh.VirtualMesh` sort
@@ -19,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-LOCAL_KERNELS = ("auto", "lax", "block")
+LOCAL_KERNELS = ("auto", "lax", "block", "bitonic", "pallas", "radix")
 
 #: ``auto`` routes to the block kernel only from this row length up: below
 #: it the block kernel would pay padding and launches for little work.
@@ -71,8 +74,9 @@ def resolve_kernel(kernel: str, dtype, n: int, device) -> str:
 
 def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
     """Ascending sort along the last axis through one of the local kernels:
-    ``auto`` (see `resolve_kernel`), ``lax`` (``torch.sort``) or ``block``
-    (`ops.block_sort.block_sort`)."""
+    ``auto`` (see `resolve_kernel`), ``lax`` (``torch.sort``), ``block``
+    (`ops.block_sort.block_sort`), ``bitonic`` (`ops.bitonic.bitonic_sort`)
+    or ``pallas`` (`ops.pallas_sort.pallas_sort`)."""
     if kernel == "auto":
         kernel = resolve_kernel(kernel, keys.dtype, keys.shape[-1], keys.device)
     if kernel == "lax":
@@ -81,7 +85,15 @@ def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
         from dsort_tpu_torch.ops.block_sort import block_sort
 
         return block_sort(keys)
-    if kernel in ("bitonic", "pallas", "radix"):
+    if kernel == "bitonic":
+        from dsort_tpu_torch.ops.bitonic import bitonic_sort
+
+        return bitonic_sort(keys)
+    if kernel == "pallas":
+        from dsort_tpu_torch.ops.pallas_sort import pallas_sort
+
+        return pallas_sort(keys)
+    if kernel == "radix":
         raise NotImplementedError(
             f"local kernel {kernel!r} is not yet ported to dsort_tpu_torch"
         )

@@ -20,7 +20,9 @@ one tensor, so each phase is one batched call:
      (`parallel.exchange`, `ops.ring_kernel`), so they never retry;
   4. merge of each destination's P received runs (`ops.block_sort.
      block_merge_runs` / ``block_merge_runs_kv`` under ``merge_kernel=
-     "auto"`` on a GPU).
+     "auto"`` on a GPU; the bitonic merge tree under ``"bitonic"``; a flat
+     re-sort through the local kernel under ``"sort"``, which is where
+     ``local_kernel="pallas"`` runs its tile kernel a second time).
 
 Keys ride as signed ints: unsigned keys through the sign-bit flip and float
 keys through `ops.float_order`, both order-preserving, so splitters, bucket
@@ -150,7 +152,9 @@ def _merge_received(recv: torch.Tensor, merge_kernel: str, kernel: str = "lax"):
 
     Rows arrive sorted with sentinel pads at their tails, so they are
     sorted runs: ``block_merge`` enters the bitonic network at the run
-    level, ``sort`` re-sorts flat through the job's local kernel.
+    level, ``bitonic`` merges them with the bitonic merge tree
+    (`ops.bitonic.merge_sorted_runs`), ``sort`` re-sorts flat through the
+    job's local kernel.
     """
     p_dst, p_src, cap = recv.shape
     merge_kernel = _resolve_merge_kernel(
@@ -160,11 +164,20 @@ def _merge_received(recv: torch.Tensor, merge_kernel: str, kernel: str = "lax"):
         from dsort_tpu_torch.ops.block_sort import block_merge_runs
 
         return block_merge_runs(recv)
-    if merge_kernel == "sort":
-        return sort_with_kernel(recv.reshape(p_dst, p_src * cap), kernel)
-    raise NotImplementedError(
-        f"merge kernel {merge_kernel!r} is not yet ported to dsort_tpu_torch"
-    )
+    if merge_kernel == "bitonic":
+        from dsort_tpu_torch.ops.bitonic import _ceil_pow2, merge_sorted_runs
+
+        # The tree needs power-of-two run lengths and counts: pad the run
+        # length (cap is only 8-aligned) and the run count (a mesh of 7)
+        # with the sentinel; padded runs stay sorted and every valid key
+        # sorts ahead of the pads, so the trim keeps them all.
+        buf = torch.full(
+            (p_dst, _ceil_pow2(p_src), _ceil_pow2(cap)), sentinel_for(recv.dtype),
+            dtype=recv.dtype, device=recv.device,
+        )
+        buf[:, :p_src, :cap] = recv
+        return merge_sorted_runs(buf)[:, : p_src * cap]
+    return sort_with_kernel(recv.reshape(p_dst, p_src * cap), kernel)
 
 
 def _sample_sort_shard(
@@ -206,24 +219,39 @@ def _merge_received_kv(
     sentinel keep their payloads.  ``block_merge`` merges the received runs
     through `ops.block_sort.block_merge_runs_kv` with the tiebreak
     ``is_pad * total + position`` as its rank plane, which comes back as the
-    permutation; ``sort`` re-sorts flat — through ``block_sort_pairs`` where
-    the local kernel resolves to ``block``, by stable ``torch.sort`` passes
-    otherwise.
+    permutation; ``bitonic`` merges them with the key+value merge tree
+    (`ops.bitonic.merge_sorted_runs_kv`) carrying the same tiebreak;
+    ``sort`` re-sorts flat — through ``block_sort_pairs`` where the local
+    kernel resolves to ``block``, by stable ``torch.sort`` passes otherwise.
     """
     p, total = flat_k.shape
     dev = flat_k.device
     merge_kernel = _resolve_merge_kernel(merge_kernel, kernel, flat_k.dtype, total, dev)
     tieb = is_pad.to(torch.int32) * total + torch.arange(total, dtype=torch.int32, device=dev)
+    runs = (p, total // cap_pair, cap_pair)
     if merge_kernel == "block_merge":
         from dsort_tpu_torch.ops.block_sort import block_merge_runs_kv
 
-        runs = (p, total // cap_pair, cap_pair)
         out_k, t = block_merge_runs_kv(flat_k.view(runs), tieb.view(runs))
         return out_k, torch.where(t < total, t, 0)
-    if merge_kernel != "sort":
-        raise NotImplementedError(
-            f"merge kernel {merge_kernel!r} is not yet ported to dsort_tpu_torch"
-        )
+    if merge_kernel == "bitonic":
+        from dsort_tpu_torch.ops.bitonic import _ceil_pow2, merge_sorted_runs_kv
+
+        # Pad the run length and count to powers of two with (sentinel,
+        # ascending tag): column pads take 2 * total + j, row pads
+        # 3 * total + j, so every padded run stays (key, tag)-sorted and
+        # the pads trim off the tail.
+        r2, cap2 = _ceil_pow2(runs[1]), _ceil_pow2(cap_pair)
+        col = torch.arange(cap2, dtype=torch.int32, device=dev)
+        kb = torch.full((p, r2, cap2), sentinel_for(flat_k.dtype), dtype=flat_k.dtype, device=dev)
+        tb = torch.empty((p, r2, cap2), dtype=torch.int32, device=dev)
+        tb[:, : runs[1]] = 2 * total + col - cap_pair
+        tb[:, runs[1] :] = 3 * total + col
+        kb[:, : runs[1], :cap_pair] = flat_k.view(runs)
+        tb[:, : runs[1], :cap_pair] = tieb.view(runs)
+        out_k, t = merge_sorted_runs_kv(kb, tb)
+        out_k, t = out_k[:, :total], t[:, :total]
+        return out_k, torch.where(t < total, t % total, 0)
     if resolve_kernel(kernel, flat_k.dtype, total, dev) == "block":
         from dsort_tpu_torch.ops.block_sort import block_sort_pairs
 

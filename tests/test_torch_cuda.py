@@ -190,3 +190,66 @@ def test_seven_shards_on_cuda(cuda):
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ko, keys[order])
     np.testing.assert_array_equal(vo, payload[order])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile_rows", [(np.int32, 2), (np.int32, 256), (np.int64, 256),
+                                             (np.int64, 512)])
+def test_tile_sorts_match_plain_versions(cuda, dtype, tile_rows):
+    """S1 / S2 bit-identical to their plain versions, through one CTA per
+    tile and through the 2- and 4-CTA cluster routes (int64 and key+index
+    tiles at 32,768 keys and above)."""
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    rng = np.random.default_rng(13)
+    tile = tile_rows * ps.LANES
+    x = torch.from_numpy(_keys(rng, (4, 2 * tile), dtype)).to(cuda)
+    ps.reset_launch_counts()
+    got = ps.tile_sort(x.clone(), tile_rows)
+    assert torch.equal(got, ps.tile_sort_plain(x.clone(), tile_rows))
+    assert torch.equal(got.view(-1, tile), torch.sort(x.view(-1, tile)).values)
+    k = x % 5  # ties: the index decides
+    v = torch.randperm(k.numel(), device=cuda, dtype=torch.int32).view(k.shape)
+    gk, gv = ps.tile_sort_kv(k.clone(), v.clone(), tile_rows)
+    pk, pv = ps.tile_sort_kv_plain(k.clone(), v.clone(), tile_rows)
+    assert torch.equal(gk, pk) and torch.equal(gv, pv)
+    assert ps.launch_counts() == {
+        "tile_sort_kernel": 1, "tile_sort_kv_kernel": 1, "radix_histogram_kernel": 0,
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint32, np.uint64])
+def test_radix_histogram_matches_plain_version(cuda, dtype):
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(_keys(rng, 300_001, dtype)).to(cuda)
+    for shift, bits in ((0, 8), (24, 8), (56, 8), (3, 14), (70, 3)):
+        got = ps.radix_histogram(x, shift, bits)
+        assert torch.equal(got, ps.radix_histogram_plain(x, shift, bits)), (shift, bits)
+        assert int(got.sum()) == x.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["alltoall", "ring"])
+def test_pallas_sample_sort_on_cuda(cuda, exchange):
+    """local_kernel="pallas" on the card: the tile kernel in phase 1 and
+    phase 5, the output equal to numpy's; and pallas_sort_kv stable."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    rng = np.random.default_rng(15)
+    x = _keys(rng, 1 << 20, np.int64)
+    ps.reset_launch_counts()
+    out = SampleSort(VirtualMesh(8), JobConfig(local_kernel="pallas")).sort(x, exchange=exchange)
+    np.testing.assert_array_equal(out, np.sort(x))
+    assert ps.launch_counts()["tile_sort_kernel"] == 2
+    keys = _keys(rng, 100_003, np.uint64) % 1000
+    rows = rng.integers(0, 256, (100_003, 13), dtype=np.uint8)
+    ok, ov = ps.pallas_sort_kv(torch.from_numpy(keys).to(cuda), torch.from_numpy(rows).to(cuda))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(ok.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(ov.cpu().numpy(), rows[order])

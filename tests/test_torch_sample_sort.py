@@ -190,7 +190,7 @@ def test_job_config_from_dict_and_validation():
     ))
     assert (job.oversample, job.capacity_factor, job.max_capacity_retries) == (16, 2.0, 1)
     for bad in (dict(exchange="hier"), dict(local_kernel="radix"),
-                dict(merge_kernel="bitonic"), dict(exchange="nope"),
+                dict(merge_kernel="nope"), dict(exchange="nope"),
                 dict(oversample=0), dict(capacity_factor=0.5)):
         with pytest.raises(ConfigError):
             JobConfig(**bad)
