@@ -9,9 +9,11 @@ Phases (any failure raises, so the exit code is non-zero):
    source, all started together; timed);
 2. hold each kernel bit-for-bit against its plain PyTorch version at the
    main path's shapes: the block kernels for int32 and int64 keys, keys
-   alone and with the int32 rank plane; the ring exchange kernel on the plan
-   of a 2^26 int32 sort (keys) and of a 2^23-record TeraSort sort (kv); the
-   payload gather with 92-byte rows;
+   alone and with the int32 rank plane; the tile kernel also at every tile
+   it admits (2 keys up to 8192 / 4096), k_start in {2, 4, T/2, T}, with
+   full (key, rank) ties and extreme keys; the ring exchange kernel on the
+   plan of a 2^26 int32 sort (keys) and of a 2^23-record TeraSort sort
+   (kv); the payload gather with 92-byte rows;
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
@@ -136,6 +138,29 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
 def random_keys(rng, shape, dtype) -> np.ndarray:
     info = np.iinfo(dtype)
     return rng.integers(info.min, info.max, shape, dtype=dtype, endpoint=True)
+
+
+def tile_limit(dtype, ranked: bool) -> int:
+    """The largest tile `bitonic_tile` admits: 48 KB of keys (and ranks)."""
+    return 8192 if dtype == np.int32 and not ranked else 4096
+
+
+def tile_inputs(rng, shape, dtype, ranked: bool) -> list:
+    """``(label, keys, ranks)`` for the tile sweep: random keys; keys ``% 7``
+    with a permutation rank plane and with many equal ranks (full
+    ``(key, rank)`` ties); INT_MIN / INT_MAX / sentinel-valued keys."""
+    n = int(np.prod(shape))
+    perm = rng.permutation(n).astype(np.int32).reshape(shape)
+    out = [("random", random_keys(rng, shape, dtype), perm)]
+    if ranked:
+        mod7 = random_keys(rng, shape, dtype) % 7
+        out += [("% 7 keys, permuted ranks", mod7, perm),
+                ("% 7 keys, ranks in {0, 1, 2}", mod7, rng.integers(0, 3, shape).astype(np.int32))]
+    info, i32 = np.iinfo(dtype), np.iinfo(np.int32)
+    extremes = np.array([info.min, info.max, info.max - 1, info.min + 1, 0, -1], dtype)
+    out.append(("INT_MIN / INT_MAX / sentinel keys", rng.choice(extremes, shape),
+                rng.choice(np.array([i32.max, i32.min, 0], np.int32), shape)))
+    return out
 
 
 def ordered_float_reference(x: np.ndarray) -> np.ndarray:
@@ -305,6 +330,34 @@ def main() -> int:
             hold(name + RANK, f"{np.dtype(dtype).name} {kv_rows}x{kv_len} + int32 rank",
                  lambda: run(kernel), lambda: run(plain))
         del x, r
+
+    # The tile kernel at every shape the wrapper admits: each tile from 2 keys
+    # (one thread) to the shared-memory limit, k_start in {2, 4, T/2, T},
+    # both key types, keys alone and with the rank plane, on small batches.
+    # Own generator, so the data of the phases below stay as they were.
+    wrng = np.random.default_rng(5)
+    for dtype in (np.int32, np.int64):
+        for ranked in (False, True):
+            cases, tile = 0, 2
+            while tile <= tile_limit(dtype, ranked):
+                for k_start in sorted({k for k in (2, 4, tile // 2, tile) if 2 <= k <= tile}):
+                    for label, keys, ranks in tile_inputs(wrng, (3, 2 * tile), dtype, ranked):
+                        x = torch.from_numpy(keys).to(dev)
+                        q = torch.from_numpy(ranks).to(dev) if ranked else None
+                        px, pq = x.clone(), (q.clone() if ranked else None)
+                        tb.bitonic_tile(x, tile, k_start, q)
+                        tb.tile_sort_plain(px, tile, k_start, pq)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(x, px) and (not ranked or torch.equal(q, pq))):
+                            raise AssertionError(
+                                f"bitonic_tile_kernel {np.dtype(dtype).name} ranked={ranked} "
+                                f"T={tile} k_start={k_start} {label}: disagrees with its plain "
+                                "version")
+                        cases += 1
+                tile *= 2
+            log(f"check bitonic_tile_kernel{RANK if ranked else ''} sweep "
+                f"{np.dtype(dtype).name}: {cases} cases, T=2..{tile // 2}, "
+                f"k_start in {{2, 4, T/2, T}}, random / ties / extreme keys: bit-identical=True")
 
     mesh = VirtualMesh(P)
     x32 = random_keys(rng, n32, np.int32)

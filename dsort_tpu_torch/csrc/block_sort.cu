@@ -14,14 +14,23 @@
 // k = 2T..row_len the global stages j = k/2..T followed by one tile merge
 // (stages j = T/2..1 of level k inside each tile).
 //
+// Where the tile lives.  The tile sort keeps its tile in registers: each
+// thread holds E consecutive keys, so a stage at distance j < E pairs keys
+// of one thread, E <= j < 32E pairs two lanes of one warp (a shuffle), and
+// only j >= 32E crosses warps, through shared memory.  The merge kernel
+// runs all its stages in shared memory (`tile_stages`), one pair per
+// thread and one barrier per stage.
+//
 // The rank plane.  Every kernel takes an optional int32 plane `r` laid out
 // like the keys (nullptr: keys alone).  With it, pairs compare
 // lexicographically as (key, rank) and both planes move together: the
 // counterpart of the reference's extra 32-bit plane in block_sort_pairs and
 // block_merge_runs_kv, where the rank breaks key ties and comes back as the
-// payload gather permutation.  One thread owns both members of a pair, so
-// the swap decision is made once per pair and equal keys can never
-// duplicate or lose a rank.
+// payload gather permutation.  Each pair gets one swap decision: where one
+// thread owns both members it orders them in place; where they sit in two
+// threads, each compares its entry with its partner's and takes the
+// partner's iff the pair must swap, and the two agree on distinct entries
+// (`order_with`).  So equal keys can never duplicate or lose a rank.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success).  Keys are int32_t or
@@ -29,12 +38,23 @@
 // signed mappings of ops/float_order.py.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kTileThreads = 512;
 constexpr int kStageThreads = 256;
+constexpr int kWarp = 32;
+
+// Keys each thread of bitonic_tile_kernel holds in registers (E); a tile of
+// fewer keys runs on one thread with E = T.  16 beat 8 for every key type
+// and plane on the card.
+constexpr int kTileKeys = 16;
+// Threads of the largest tile the wrapper admits (8192 int32 keys).
+constexpr int kTileBlock = 8192 / kTileKeys;
+
+__host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
 
 // Orders (a, ra) and (b, rb) ascending (asc) or descending, in place.
 template <typename K, bool R>
@@ -104,28 +124,221 @@ __device__ __forceinline__ void store_tile(const K* s, const int32_t* sr,
   }
 }
 
+// Copies E consecutive values from p (global or shared memory) into a
+// thread's registers, 16 bytes at a time where the address allows.
+template <typename V, int E>
+__device__ __forceinline__ void load_run(V (&v)[E], const V* p) {
+  constexpr int kVec = 16 / sizeof(V);
+  if constexpr (E % kVec == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int c = 0; c < E / kVec; ++c) {
+        const int4 w = reinterpret_cast<const int4*>(p)[c];
+        memcpy(&v[c * kVec], &w, sizeof(w));
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) v[e] = p[e];
+}
+
+template <typename V, int E>
+__device__ __forceinline__ void store_run(V* p, const V (&v)[E]) {
+  constexpr int kVec = 16 / sizeof(V);
+  if constexpr (E % kVec == 0) {
+    if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+      for (int c = 0; c < E / kVec; ++c) {
+        int4 w;
+        memcpy(&w, &v[c * kVec], sizeof(w));
+        reinterpret_cast<int4*>(p)[c] = w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e) p[e] = v[e];
+}
+
+// compare_exchange for a pair in one thread's registers.  With ranks, one
+// comparison decides: swap iff "a > b" equals "ascending"; a full (key,
+// rank) tie then swaps two identical entries, which changes no bit.  (On an
+// H100 this made the rank-plane tile sort ~1.6x faster than
+// compare_exchange's two predicates.)
+template <typename K, bool R>
+__device__ __forceinline__ void order_pair(K& a, K& b, int32_t& ra, int32_t& rb, bool asc) {
+  if constexpr (!R) {
+    compare_exchange<K, R>(a, b, ra, rb, asc);
+  } else if (((a > b) | ((a == b) & (ra > rb))) == asc) {
+    const K tk = a;
+    a = b;
+    b = tk;
+    const int32_t tr = ra;
+    ra = rb;
+    rb = tr;
+  }
+}
+
+// Levels k = max(2, k_start)..E: every stage pairs keys of one thread.  i0
+// holds the low bits of the in-row index of the thread's first key.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void thread_levels(K (&v)[E], int32_t (&q)[E], int i0,
+                                              long long k_start) {
+#pragma unroll
+  for (int lk = 1; lk <= log2i(E); ++lk) {
+    const int k = 1 << lk;
+    if (k < k_start) continue;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if ((e & j) == 0)
+          order_pair<K, R>(v[e], v[e + j], q[e], q[e + j], ((i0 | e) & k) == 0);
+    }
+  }
+}
+
+// Stages j = E/2..1 of a level k >= 2E, one direction for the whole thread.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void thread_tail(K (&v)[E], int32_t (&q)[E], bool asc) {
+#pragma unroll
+  for (int lj = log2i(E) - 1; lj >= 0; --lj) {
+    const int j = 1 << lj;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if ((e & j) == 0) order_pair<K, R>(v[e], v[e + j], q[e], q[e + j], asc);
+  }
+}
+
+// This thread's side of a pair whose other member (p, pr) another thread
+// holds; `up` says which member this thread holds.  The lower member takes
+// the minimum when ascending.  With ranks, both threads decide from the one
+// comparison "mine > partner": for distinct entries the two answers are
+// complements and `up` flips one, so both take the same decision; a full
+// tie leaves both threads with identical entries whichever way they go.
+template <typename K, bool R>
+__device__ __forceinline__ void order_with(K& v, int32_t& q, K p, int32_t pr, bool up,
+                                           bool desc) {
+  if constexpr (!R) {
+    v = up == desc ? (p < v ? p : v) : (p > v ? p : v);
+  } else if (((v > p) | ((v == p) & (q > pr))) != (desc != up)) {
+    v = p;
+    q = pr;
+  }
+}
+
+// One stage at distance j = d E (d < 32): key e of this lane pairs key e of
+// lane ^ d.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void shfl_stage(K (&v)[E], int32_t (&q)[E], int d, bool up,
+                                           bool desc, unsigned mask) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const K p = __shfl_xor_sync(mask, v[e], d);
+    int32_t pr = 0;
+    if constexpr (R) pr = __shfl_xor_sync(mask, q[e], d);
+    order_with<K, R>(v[e], q[e], p, pr, up, desc);
+  }
+}
+
+// Shared-memory image of every thread's run in 16-byte chunks, chunk c of
+// thread t at c * threads + t: a warp's accesses to one chunk index, its
+// own or its partners', fall on distinct banks.
+template <typename V, int E>
+__device__ __forceinline__ void put_chunks(V* s, const V (&v)[E]) {
+  constexpr int kVec = 16 / sizeof(V);
+#pragma unroll
+  for (int c = 0; c < E / kVec; ++c) {
+    int4 w;
+    memcpy(&w, &v[c * kVec], sizeof(w));
+    reinterpret_cast<int4*>(s)[c * blockDim.x + threadIdx.x] = w;
+  }
+}
+
+// Values g N..g N + N - 1 of thread t's run (N a multiple of 16 bytes).
+template <typename V, int N>
+__device__ __forceinline__ void get_chunks(V (&v)[N], const V* s, int t, int g) {
+  constexpr int kVec = 16 / sizeof(V);
+#pragma unroll
+  for (int c = 0; c < N / kVec; ++c) {
+    const int4 w = reinterpret_cast<const int4*>(s)[(g * N / kVec + c) * blockDim.x + t];
+    memcpy(&v[c * kVec], &w, sizeof(w));
+  }
+}
+
+// One stage at distance j = d E with d >= 32, across warps: every thread
+// publishes its run, reads its partner's (thread ^ d) and keeps its side.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void smem_stage(K (&v)[E], int32_t (&q)[E], K* s, int32_t* sr,
+                                           int d, bool up, bool desc) {
+  constexpr int G = 4;  // keys per step: one 16-byte chunk of ranks
+  put_chunks<K, E>(s, v);
+  if constexpr (R) put_chunks<int32_t, E>(sr, q);
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < E / G; ++g) {
+    K p[G];
+    int32_t pr[G] = {};
+    get_chunks<K, G>(p, s, threadIdx.x ^ d, g);
+    if constexpr (R) get_chunks<int32_t, G>(pr, sr, threadIdx.x ^ d, g);
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      order_with<K, R>(v[g * G + u], q[g * G + u], p[u], pr[u], up, desc);
+  }
+  __syncthreads();  // every partner read before the next stage writes
+}
+
 // Replaces K1 `_tile_sort_cm_kernel` (block_sort.py:419) at k_start == 2
 // and K1b `_sort_levels_kernel` (block_sort.py:440) at k_start > 2 (the
 // merge entry of block_merge_runs for runs shorter than a tile).
-// Bound: every key (and rank) is read and written once; the
-// log2(T)(log2(T)+1)/2 stages run out of shared memory, so on this card the
-// limit is shared-memory bandwidth and the barrier per stage rather than
-// HBM.  Design: one block per tile, 512 threads each owning T/1024 pairs
-// per stage, one __syncthreads per stage; directions come from the in-row
-// index, so the tile's top level takes its direction from the tile's
-// parity inside the row, as K1's block parity does.
-template <typename K, bool R>
-__global__ void bitonic_tile_kernel(K* __restrict__ x, int32_t* __restrict__ r,
-                                    long long row_len, int T,
-                                    long long k_start) {
+// Bound: every key (and rank) is read and written once, 2 n (itemsize
+// [+ 4]) bytes: 0.16 ms at 8 x 2^23 int32 on H100 HBM3.  Against that stand
+// n log2(T)(log2(T)+1)/4 compare-exchanges (78 stages at T = 4096), one to
+// four instructions a key each: the kernel is bound by instructions, not HBM.
+// Design: T/E threads per tile, each holding E consecutive keys (and ranks)
+// in registers, loaded and stored 16 bytes at a time where the address
+// allows.  Of a level's stages j, those with j < E run inside the thread,
+// unrolled, with no memory and no barrier; E <= j < 32E take one shuffle a
+// key (int64: two words; the rank one more) at lane distance j/E; only
+// j >= 32E cross warps, through shared memory: each thread publishes its
+// run, a barrier, reads its partner's run, a barrier (`smem_stage`, in a
+// layout whose accesses meet no bank conflict).  At T = 4096, E = 16: 42
+// stages in-thread, 30 on shuffles, 6 in shared memory, of 78.  Directions
+// come from the in-row index, so the tile's top level takes its direction
+// from the tile's parity inside the row, as K1's block parity does.  The
+// merge kernel still runs every stage in shared memory (`tile_stages`):
+// giving it this register-resident tail is later work.
+template <typename K, bool R, int E>
+__global__ void __launch_bounds__(kTileBlock)
+    bitonic_tile_kernel(K* __restrict__ x, int32_t* __restrict__ r, long long row_len,
+                        int T, long long k_start) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   K* s = reinterpret_cast<K*>(smem_raw);
   int32_t* sr = reinterpret_cast<int32_t*>(s + T);
-  const long long base = load_tile<K, R>(s, sr, x, r, T);
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) * T;
   const long long row_off = base & (row_len - 1);
-  for (long long k = k_start; k <= T; k <<= 1)
-    tile_stages<K, R>(s, sr, T, row_off, k, static_cast<int>(k >> 1));
-  store_tile<K, R>(s, sr, x, r, T, base);
+  // Bits 0..log2(T) of the in-row index of the thread's first key: all that
+  // a level k <= T reads of it.
+  const int i0 = static_cast<int>(row_off & T) | (t * E);
+  K v[E];
+  int32_t q[E];
+  load_run<K, E>(v, x + base + t * E);
+  if constexpr (R) load_run<int32_t, E>(q, r + base + t * E);
+  thread_levels<K, R, E>(v, q, i0, k_start);
+  const unsigned mask = blockDim.x >= kWarp ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  for (int k = k_start > 2 * E ? static_cast<int>(k_start) : 2 * E; k <= T; k <<= 1) {
+    const bool desc = (i0 & k) != 0;
+    int j = k >> 1;
+    for (; j >= kWarp * E; j >>= 1)
+      smem_stage<K, R, E>(v, q, s, sr, j / E, (t & (j / E)) != 0, desc);
+    for (; j >= E; j >>= 1) shfl_stage<K, R, E>(v, q, j / E, (t & (j / E)) != 0, desc, mask);
+    thread_tail<K, R, E>(v, q, !desc);
+  }
+  store_run<K, E>(x + base + t * E, v);
+  if constexpr (R) store_run<int32_t, E>(r + base + t * E, q);
 }
 
 // Replaces the cross stages of K2 `_cross_kernel` (block_sort.py:466) and
@@ -193,17 +406,35 @@ size_t tile_smem(int T, bool ranked) {
   return static_cast<size_t>(T) * (sizeof(K) + (ranked ? sizeof(int32_t) : 0));
 }
 
+template <typename K, bool R, int E>
+void launch_tile_e(K* x, int32_t* r, long long rows, long long row_len, int T,
+                   long long k_start, cudaStream_t st) {
+  const unsigned int tiles = static_cast<unsigned int>(rows * row_len / T);
+  bitonic_tile_kernel<K, R, E><<<tiles, T / E, tile_smem<K>(T, R), st>>>(x, r, row_len, T,
+                                                                          k_start);
+}
+
+// E = min(T, kTileKeys).
+template <typename K, bool R>
+void launch_tile_r(K* x, int32_t* r, long long rows, long long row_len, int T,
+                   long long k_start, cudaStream_t st) {
+  switch (T < kTileKeys ? T : kTileKeys) {
+    case 2: return launch_tile_e<K, R, 2>(x, r, rows, row_len, T, k_start, st);
+    case 4: return launch_tile_e<K, R, 4>(x, r, rows, row_len, T, k_start, st);
+    case 8: return launch_tile_e<K, R, 8>(x, r, rows, row_len, T, k_start, st);
+    default: return launch_tile_e<K, R, kTileKeys>(x, r, rows, row_len, T, k_start, st);
+  }
+}
+
 template <typename K>
 int launch_tile(void* x, void* r, long long rows, long long row_len, int T,
                 long long k_start, void* stream) {
-  const unsigned int tiles = static_cast<unsigned int>(rows * row_len / T);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r != nullptr)
-    bitonic_tile_kernel<K, true><<<tiles, tile_threads(T), tile_smem<K>(T, true), st>>>(
-        static_cast<K*>(x), static_cast<int32_t*>(r), row_len, T, k_start);
+    launch_tile_r<K, true>(static_cast<K*>(x), static_cast<int32_t*>(r), rows, row_len, T,
+                           k_start, st);
   else
-    bitonic_tile_kernel<K, false><<<tiles, tile_threads(T), tile_smem<K>(T, false), st>>>(
-        static_cast<K*>(x), nullptr, row_len, T, k_start);
+    launch_tile_r<K, false>(static_cast<K*>(x), nullptr, rows, row_len, T, k_start, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,16 +7,20 @@ levels, K2b/K3 span tail).  On Hopper the network is carried by three CUDA
 kernels in ``csrc/block_sort.cu``, each beside its plain PyTorch version
 here:
 
-  =============================  =========================  ==================
-  CUDA kernel (wrapper)          replaces                   plain version
-  =============================  =========================  ==================
-  bitonic_tile_kernel            K1 (k_start=2), K1b        `tile_sort_plain`
-  (`bitonic_tile`)               (k_start>2)
-  bitonic_global_stage_kernel    K2, K2c (one stage j>=T    `global_stage_plain`
-  (`bitonic_global_stage`)       per launch)
-  bitonic_tile_merge_kernel      in-block tails of K2a,     `tile_merge_plain`
-  (`bitonic_tile_merge`)         K2b/K3
-  =============================  =========================  ==================
+  ===========================  =====================  ===================  ====================
+  CUDA kernel (wrapper)        replaces               where a stage runs   plain version
+  ===========================  =====================  ===================  ====================
+  bitonic_tile_kernel          K1 (k_start=2), K1b    registers: 16 keys   `tile_sort_plain`
+  (`bitonic_tile`)             (k_start>2)            a thread; j < 512
+                                                      in the thread or
+                                                      on warp shuffles,
+                                                      j >= 512 through
+                                                      shared memory
+  bitonic_global_stage_kernel  K2, K2c (one stage     HBM, one pair a      `global_stage_plain`
+  (`bitonic_global_stage`)     j>=T per launch)       thread
+  bitonic_tile_merge_kernel    in-block tails of      shared memory, one   `tile_merge_plain`
+  (`bitonic_tile_merge`)       K2a, K2b/K3            pair a thread
+  ===========================  =====================  ===================  ====================
 
 Every function works on a 2-D batch ``(rows, row_len)`` with ``row_len`` a
 power of two and sorts each row independently; the top level of every row

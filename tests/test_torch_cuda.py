@@ -27,20 +27,64 @@ def _keys(rng, shape, dtype):
     return rng.integers(info.min, info.max, shape, dtype=dtype, endpoint=True)
 
 
+def _tile_limit(dtype, ranked):
+    """The largest tile `bitonic_tile` admits: 48 KB of keys (and ranks)."""
+    return 8192 if dtype == np.int32 and not ranked else 4096
+
+
+def _tile_inputs(rng, shape, dtype, ranked):
+    """Random keys; keys % 7 with a permutation rank plane and with ranks in
+    {0, 1, 2} (full (key, rank) ties); INT_MIN / INT_MAX / sentinel keys."""
+    perm = rng.permutation(int(np.prod(shape))).astype(np.int32).reshape(shape)
+    out = [(_keys(rng, shape, dtype), perm)]
+    if ranked:
+        mod7 = _keys(rng, shape, dtype) % 7
+        out += [(mod7, perm), (mod7, rng.integers(0, 3, shape).astype(np.int32))]
+    info, i32 = np.iinfo(dtype), np.iinfo(np.int32)
+    extremes = np.array([info.min, info.max, info.max - 1, info.min + 1, 0, -1], dtype)
+    out.append((rng.choice(extremes, shape), rng.choice(np.array([i32.max, i32.min, 0], np.int32), shape)))
+    return out
+
+
+TILE_SWEEP = [
+    (dtype, ranked, 1 << e)
+    for dtype in (np.int32, np.int64)
+    for ranked in (False, True)
+    for e in range(1, 14)
+    if 1 << e <= _tile_limit(dtype, ranked)
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ranked", [False, True])
-@pytest.mark.parametrize("dtype", [np.int32, np.int64])
-def test_kernels_match_plain_versions(cuda, dtype, ranked):
-    """Each kernel bit-identical to its plain version, keys alone and with
-    the rank plane (heavy key ties, so ranks decide), and the launch
-    counters move only where a kernel launched."""
+@pytest.mark.parametrize("dtype,ranked,tile", TILE_SWEEP)
+def test_kernels_match_plain_versions(cuda, dtype, ranked, tile):
+    """The tile kernel bit-identical to its plain version at every tile the
+    wrapper admits, k_start in {2, 4, T/2, T}, on random keys, ties that
+    the rank plane decides, full (key, rank) ties and extreme keys; at the
+    default tile also the other two kernels (heavy key ties with the rank
+    plane).  The launch counters move only where a kernel launched."""
     rng = np.random.default_rng(8)
+    plane = tb.RANK if ranked else ""
+    for k_start in sorted({k for k in (2, 4, tile // 2, tile) if 2 <= k <= tile}):
+        for keys, ranks in _tile_inputs(rng, (3, 2 * tile), dtype, ranked):
+            x = torch.from_numpy(keys).to(cuda)
+            r = torch.from_numpy(ranks).to(cuda) if ranked else None
+            px, pr = x.clone(), r.clone() if ranked else None
+            tb.reset_launch_counts()
+            tb.bitonic_tile(x, tile, k_start, r)
+            tb.tile_sort_plain(px, tile, k_start, pr)
+            torch.cuda.synchronize()
+            assert torch.equal(x, px), (tile, k_start)
+            if ranked:
+                assert torch.equal(r, pr), (tile, k_start)
+            assert tb.launch_counts()["bitonic_tile_kernel" + plane] == 1
+    if tile != tb.TILE:
+        return
     keys = _keys(rng, (4, 16384), dtype)
     if ranked:
         keys = keys % 7
     x = torch.from_numpy(keys).to(cuda)
     r = torch.from_numpy(rng.permutation(4 * 16384).astype(np.int32).reshape(4, -1)).to(cuda)
-    plane = tb.RANK if ranked else ""
     cases = [
         ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, 4096, 2, q),
          lambda t, q: tb.tile_sort_plain(t, 4096, 2, q)),
