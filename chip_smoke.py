@@ -9,7 +9,9 @@ Phases (any failure raises, so the exit code is non-zero):
    source, all started together; timed);
 2. hold each kernel bit-for-bit against its plain PyTorch version at the
    main path's shapes: the block kernels for int32 and int64 keys, keys
-   alone and with the int32 rank plane; the tile kernel also at every tile
+   alone and with the int32 rank plane; the global-stage kernel for every
+   stage count S = 1..S_max, at the top group of the top level and the
+   bottom group (j_low = T) of a lower one; the tile kernel also at every tile
    it admits (2 keys up to 8192 / 4096), k_start in {2, 4, T/2, T}, with
    full (key, rank) ties and extreme keys; the ring exchange kernel on the
    plan of a 2^26 int32 sort (keys) and of a 2^23-record TeraSort sort
@@ -17,7 +19,9 @@ Phases (any failure raises, so the exit code is non-zero):
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
-   and read just after, each output checked against numpy:
+   and read just after (the global-stage launches beside the stages they
+   ran, each level's cross stages in ceil(g / S_max) passes), each output
+   checked against numpy:
    ``SampleSort(VirtualMesh(8)).sort`` under the default ``alltoall`` at
    2^26 uniform int32, 2^24 zipf int64 (must take the capacity retry) and
    2^20 float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line file;
@@ -33,10 +37,12 @@ Phases (any failure raises, so the exit code is non-zero):
    ``pallas_sort_kv`` on 2^23 TeraSort and 2^22 zipf records (stable);
    ``cli run --kernel pallas``;
 5. timings at the main path's shapes: each kernel, its plain version and
-   the nearest torch call (``library_ms``), the bound; the host-to-host
+   the nearest torch call (``library_ms``), the bound; the global-stage
+   kernel's pass at every S; the host-to-host
    sorts under each exchange and under ``pallas`` against ``auto``;
    ``pallas_sort`` / ``pallas_sort_kv`` against ``torch.sort``; records/s
-   of ``sort_kv``; device traces.
+   of ``sort_kv``; device traces, with the traced sum of the global-stage
+   kernel in the 2^26 sort and in ``block_sort`` of 2^26.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -195,9 +201,10 @@ class Journal:
         return [f for t, f in self.events if t == etype]
 
 
-def profile(fn, label: str, card: str) -> None:
+def profile(fn, label: str, card: str) -> dict[str, list]:
     """One traced run of ``fn``: device time by kernel or copy, and the
-    device's busy share of the wall time (torch.profiler over CUPTI)."""
+    device's busy share of the wall time (torch.profiler over CUPTI);
+    returns ``{name: [ms, count]}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -219,6 +226,44 @@ def profile(fn, label: str, card: str) -> None:
         f"({100 * busy / wall_ms:.1f}% of wall) [{card}]")
     for name, (ms, count) in rows[:10]:
         log(f"  device {ms:9.3f} ms  x{count:<4d} {name[:90]}")
+    return by_name
+
+
+def traced(by_name: dict[str, list], kernel: str) -> tuple[float, int]:
+    """Summed device ms and launches of every instantiation of ``kernel``."""
+    hits = [v for name, v in by_name.items() if kernel + "<" in name]
+    return sum(ms for ms, _ in hits), sum(c for _, c in hits)
+
+
+class StageTally:
+    """Records each `bitonic_global_stage` call of the host loop, so a run
+    can show its passes beside the stages they ran.  Patches the module
+    attribute the host loop calls; the wrapper itself runs unchanged."""
+
+    def __init__(self, tb):
+        self.tb, self.real, self.calls = tb, tb.bitonic_global_stage, []
+
+        def spy(x, k, j, r=None, stages=1):
+            self.calls.append((k, j, stages, r is not None, x.dtype))
+            return self.real(x, k, j, r, stages)
+
+        tb.bitonic_global_stage = spy
+
+    def close(self):
+        self.tb.bitonic_global_stage = self.real
+
+    def summary(self, ranked: bool) -> tuple[int, int, int]:
+        """``(stages, passes, least passes)`` of one plane: the least is
+        sum over levels of ceil(g / S_max), a level's calls starting at
+        j = k/2."""
+        calls = [c for c in self.calls if c[3] == ranked]
+        levels = []
+        for k, j, s, _, dtype in calls:
+            if j == k // 2:
+                levels.append([0, self.tb.STAGES_MAX[(dtype, ranked)]])
+            levels[-1][0] += s
+        least = sum(-(-g // s_max) for g, s_max in levels)
+        return sum(c[2] for c in calls), len(calls), least
 
 
 def main() -> int:
@@ -266,6 +311,13 @@ def main() -> int:
         f"load {time.perf_counter() - t0:.2f} s")
     if sorted(str(p.relative_to(ROOT)) for p in _build.sources()) != sorted(SOURCES.values()):
         raise AssertionError(f"built sources {_build.sources()} are not {SOURCES}")
+    built_s_max = {(d, ranked): _build.library().dsort_bitonic_global_stages_max(
+        d.itemsize, int(ranked)) for d, ranked in tb.STAGES_MAX}
+    if built_s_max != tb.STAGES_MAX:
+        raise AssertionError(f"kStagesMax {built_s_max} != STAGES_MAX {tb.STAGES_MAX}")
+    log("global-stage S_max: " + ", ".join(
+        f"{str(d).removeprefix('torch.')}{RANK if ranked else ''} {v}"
+        for (d, ranked), v in tb.STAGES_MAX.items()))
 
     # 2. kernel vs plain at the main path's shapes ---------------------------
     n32, n64, nrec = 1 << 26, 1 << 24, 1 << 23
@@ -285,6 +337,22 @@ def main() -> int:
         log(f"check {name} {label}: bit-identical=True max_abs_err={e}")
         err[name] = max(err.get(name, 0.0), e)
 
+    def hold_stages(x, r, label):
+        """The global-stage kernel against ``global_stage_plain(...,
+        stages=s)`` for every s up to S_max: the top group of the top level
+        (j = row_len/2) and the bottom group of a lower level (j_low = T)."""
+        row_len = x.shape[1]
+        name = "bitonic_global_stage_kernel" + (RANK if r is not None else "")
+        for st in range(1, tb.STAGES_MAX[(x.dtype, r is not None)] + 1):
+            j_bot = T << (st - 1)
+            for k, j in ((row_len, row_len // 2), (max(row_len // 2, 2 * j_bot), j_bot)):
+                def run(fn):
+                    t, q = x.clone(), (None if r is None else r.clone())
+                    fn(t, k, j, q, stages=st)
+                    return (t,) if q is None else (t, q)
+                hold(name, f"{label} S={st} k={k} j={j}..{j >> (st - 1)}",
+                     lambda: run(tb.bitonic_global_stage), lambda: run(tb.global_stage_plain))
+
     shapes = {np.int32: (P, n32 // P), np.int64: (P, n64 // P)}
     for dtype, (rows, row_len) in shapes.items():
         x = torch.from_numpy(random_keys(rng, (rows, row_len), dtype)).to(dev)
@@ -293,18 +361,13 @@ def main() -> int:
              lambda t: tb.tile_sort_plain(t, T)),
             ("bitonic_tile_kernel", lambda t: tb.bitonic_tile(t, T, 512),
              lambda t: tb.tile_sort_plain(t, T, 512)),
-            ("bitonic_global_stage_kernel",
-             lambda t: tb.bitonic_global_stage(t, row_len, row_len // 2),
-             lambda t: tb.global_stage_plain(t, row_len, row_len // 2)),
-            ("bitonic_global_stage_kernel",
-             lambda t: tb.bitonic_global_stage(t, row_len // 2, T),
-             lambda t: tb.global_stage_plain(t, row_len // 2, T)),
             ("bitonic_tile_merge_kernel", lambda t: tb.bitonic_tile_merge(t, T, row_len),
              lambda t: tb.tile_merge_plain(t, T, row_len)),
         ]
         for name, kernel, plain in checks:
             hold(name, f"{np.dtype(dtype).name} {rows}x{row_len}",
                  lambda: (kernel(x.clone()),), lambda: (plain(x.clone()),))
+        hold_stages(x, None, f"{np.dtype(dtype).name} {rows}x{row_len}")
         del x
 
     # The rank plane at the records merge shape: 8 rows of 8 slots x 2^18
@@ -313,12 +376,12 @@ def main() -> int:
     for dtype in (np.int64, np.int32):
         x = torch.from_numpy(random_keys(rng, (kv_rows, kv_len), dtype) % 4096).to(dev)
         r = torch.randperm(kv_rows * kv_len, device=dev, dtype=torch.int32).view(kv_rows, kv_len)
+        label = f"{np.dtype(dtype).name} {kv_rows}x{kv_len} + int32 rank"
+        hold_stages(x, r, f"{label}, keys % 4096")
+        hold_stages(x % 7, r, f"{label}, keys % 7")
         rank_checks = [
             ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, T, 2, q),
              lambda t, q: tb.tile_sort_plain(t, T, 2, q)),
-            ("bitonic_global_stage_kernel",
-             lambda t, q: tb.bitonic_global_stage(t, kv_len, kv_len // 2, q),
-             lambda t, q: tb.global_stage_plain(t, kv_len, kv_len // 2, q)),
             ("bitonic_tile_merge_kernel", lambda t, q: tb.bitonic_tile_merge(t, T, kv_len, q),
              lambda t, q: tb.tile_merge_plain(t, T, kv_len, q)),
         ]
@@ -327,8 +390,7 @@ def main() -> int:
                 t, q = x.clone(), r.clone()
                 fn(t, q)
                 return t, q
-            hold(name + RANK, f"{np.dtype(dtype).name} {kv_rows}x{kv_len} + int32 rank",
-                 lambda: run(kernel), lambda: run(plain))
+            hold(name + RANK, label, lambda: run(kernel), lambda: run(plain))
         del x, r
 
     # The tile kernel at every shape the wrapper admits: each tile from 2 keys
@@ -452,11 +514,22 @@ def main() -> int:
     keys_path = set(tb.WRAPPERS)
     kv_merge = {"bitonic_global_stage_kernel" + RANK, "bitonic_tile_merge_kernel" + RANK}
 
-    def launched(label, need):
+    def launched(label, need, tally=None):
+        """The run's launches; with a `StageTally`, also its global-stage
+        passes beside the stages they ran, which must be the least the
+        levels allow (ceil(g / S_max) each)."""
         got = counts()
         missing = sorted(k for k in need if not got[k])
         if missing:
             raise AssertionError(f"{label}: kernels of the path not launched: {missing} {got}")
+        for ranked in (False, True) if tally is not None else ():
+            stages, passes, least = tally.summary(ranked)
+            name = "bitonic_global_stage_kernel" + (RANK if ranked else "")
+            if passes != got[name] or passes != least:
+                raise AssertionError(f"{label}: {got[name]} {name} launches for {stages} "
+                                     f"stages, {passes} calls, least {least}")
+            if passes:
+                log(f"  {name}: {stages} stages in {passes} passes")
         return {k: v for k, v in got.items() if v}
 
     def drive(label, data, reference, metrics=None, exchange=None, sorter=None, need=None):
@@ -464,11 +537,15 @@ def main() -> int:
         sorter = sorter or ss
         if need is None:
             need = keys_path | (ring_kernels if exchange == "fused" else set())
+        tally = StageTally(tb)
         reset()
         t0 = time.perf_counter()
-        out = sorter.sort(data, metrics, exchange=exchange)
+        try:
+            out = sorter.sort(data, metrics, exchange=exchange)
+        finally:
+            tally.close()
         wall = time.perf_counter() - t0
-        got = launched(label, need)
+        got = launched(label, need, tally)
         if not same_bits(out, reference):
             raise AssertionError(f"{label}: output differs from numpy")
         log(f"main {label}: equal to numpy, {wall * 1e3:.1f} ms wall, launches {got}")
@@ -585,12 +662,16 @@ def main() -> int:
     kv_launches = {}
     for exchange in ("alltoall", "ring", "fused"):
         need = kv_merge | (kv_fused if exchange == "fused" else set())
+        tally = StageTally(tb)
         reset()
         m = Metrics()
         t0 = time.perf_counter()
-        ok, ov = ss.sort_kv(tk, tv, m, exchange=exchange)
+        try:
+            ok, ov = ss.sort_kv(tk, tv, m, exchange=exchange)
+        finally:
+            tally.close()
         wall = time.perf_counter() - t0
-        got = launched(f"sort_kv {exchange}", need)
+        got = launched(f"sort_kv {exchange}", need, tally)
         if not (np.array_equal(ok, ref_k) and np.array_equal(ov, ref_v)):
             raise AssertionError(f"sort_kv {exchange}: records differ from numpy's order")
         outs[exchange] = ov
@@ -692,11 +773,15 @@ def main() -> int:
           lambda: tb.bitonic_tile(x, T), lambda: tb.tile_sort_plain(x, T),
           lambda: torch.sort(x.view(-1, T), dim=-1), 2 * n * 4, n * stages_tile,
           f"int32 {rows}x{row_len}")
+    # One pass of S_max stages (the top group of the top level); its bound is
+    # one pass over the keys whatever S is, plus n S / 2 compare-exchanges.
+    s32 = tb.STAGES_MAX[(x.dtype, False)]
     entry("bitonic_global_stage_kernel", SOURCES["block"],
           main_launches["bitonic_global_stage_kernel"],
-          lambda: tb.bitonic_global_stage(x, row_len, row_len // 2),
-          lambda: tb.global_stage_plain(x, row_len, row_len // 2), None, 2 * n * 4, n,
-          f"int32 {rows}x{row_len}")
+          lambda: tb.bitonic_global_stage(x, row_len, row_len // 2, stages=s32),
+          lambda: tb.global_stage_plain(x, row_len, row_len // 2, stages=s32), None, 2 * n * 4,
+          n * s32, f"int32 {rows}x{row_len} S={s32}, library null: a stage is two torch calls "
+          "(minimum and maximum of strided views), S stages 2S")
     entry("bitonic_tile_merge_kernel", SOURCES["block"],
           main_launches["bitonic_tile_merge_kernel"],
           lambda: tb.bitonic_tile_merge(x, T, row_len),
@@ -721,11 +806,34 @@ def main() -> int:
     log(f"time bitonic_tile_kernel{RANK} int64+int32 {kv_rows}x{kv_len}: {ktile_ms:.4f} ms, "
         f"plain {ktile_plain:.4f} ms, bound {ktile_bound:.4f} ms ({ktile_by}) (not on the "
         f"records path at this size) [{card}]")
+    s64r = tb.STAGES_MAX[(xk.dtype, True)]
     entry("bitonic_global_stage_kernel" + RANK, SOURCES["block"],
           kv_launches["bitonic_global_stage_kernel" + RANK],
-          lambda: tb.bitonic_global_stage(xk, kv_len, kv_len // 2, rq),
-          lambda: tb.global_stage_plain(xk, kv_len, kv_len // 2, rq), None, 2 * nk * 12, nk,
-          f"int64+int32 rank {kv_rows}x{kv_len}")
+          lambda: tb.bitonic_global_stage(xk, kv_len, kv_len // 2, rq, s64r),
+          lambda: tb.global_stage_plain(xk, kv_len, kv_len // 2, rq, s64r), None, 2 * nk * 12,
+          nk * s64r, f"int64+int32 rank {kv_rows}x{kv_len} S={s64r}, library null: torch has "
+          "no lexicographic (key, rank) compare-exchange")
+    # The global-stage pass at every S it takes, per key type and plane, at
+    # the main path's shapes (8 x 2^23 int32, 8 x 2^21 int64, the records'
+    # 8 x 2^21 with the rank plane): ms a pass and a stage, and the bound.
+    trng = np.random.default_rng(7)
+    for dtype, ranked, (prow, plen) in (
+        (np.int32, False, (rows, row_len)), (np.int64, False, shapes[np.int64]),
+        (np.int32, True, (kv_rows, kv_len)), (np.int64, True, (kv_rows, kv_len)),
+    ):
+        xs_ = torch.from_numpy(random_keys(trng, (prow, plen), dtype)).to(dev)
+        rs_ = (torch.randperm(prow * plen, device=dev, dtype=torch.int32).view(prow, plen)
+               if ranked else None)
+        nb = 2 * prow * plen * (xs_.element_size() + (4 if ranked else 0))
+        b_ms, _ = bound_ms(nb)
+        parts = []
+        for st in range(1, tb.STAGES_MAX[(xs_.dtype, ranked)] + 1):
+            ms = cuda_ms(lambda: tb.bitonic_global_stage(xs_, plen, plen // 2, rs_, st))
+            parts.append(f"S={st} {ms:.4f} ms ({ms / st:.4f} a stage)")
+        log(f"time bitonic_global_stage_kernel{RANK if ranked else ''} by S "
+            f"{np.dtype(dtype).name} {prow}x{plen}: {', '.join(parts)}; bound {b_ms:.4f} ms "
+            f"a pass [{card}]")
+        del xs_, rs_
     entry("bitonic_tile_merge_kernel" + RANK, SOURCES["block"],
           kv_launches["bitonic_tile_merge_kernel" + RANK],
           lambda: tb.bitonic_tile_merge(xk, T, kv_len, rq),
@@ -804,6 +912,10 @@ def main() -> int:
     bs_ms = cuda_ms(lambda: tb.block_sort(xf), reps=5)
     log(f"time block_sort int32 n=2^26: {bs_ms:.3f} ms ({n32 / bs_ms / 1e6:.3f} Gkeys/s), "
         f"torch.sort {ts_ms:.3f} ms ({n32 / ts_ms / 1e6:.3f} Gkeys/s) [{card}]")
+    by_name = profile(lambda: tb.block_sort(xf), "block_sort int32 n=2^26", card)
+    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
+    log(f"traced bitonic_global_stage_kernel in block_sort int32 n=2^26: {g_ms:.3f} ms over "
+        f"{g_n} launches; torch.sort of the same {ts_ms:.3f} ms [{card}]")
     del xf
     def by_exchange(label, run, unit, scale):
         """Host-to-host time of ``run(exchange)`` per exchange, in turns
@@ -842,9 +954,16 @@ def main() -> int:
         m = Metrics()
         ss.sort_kv(tk, tv, m, exchange=exchange)
         log(f"phases sort_kv 2^23 records {exchange}: {json.dumps(m.summary())} [{card}]")
-    profile(lambda: ss.sort(x32), "SampleSort int32 n=2^26 alltoall", card)
+    by_name = profile(lambda: ss.sort(x32), "SampleSort int32 n=2^26 alltoall", card)
+    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
+    log(f"traced bitonic_global_stage_kernel in SampleSort int32 n=2^26 alltoall: {g_ms:.3f} ms "
+        f"over {g_n} launches [{card}]")
     profile(lambda: ss.sort(x32, exchange="fused"), "SampleSort int32 n=2^26 fused", card)
-    profile(lambda: ss.sort_kv(tk, tv, exchange="fused"), "sort_kv 2^23 records fused", card)
+    by_name = profile(lambda: ss.sort_kv(tk, tv, exchange="fused"), "sort_kv 2^23 records fused",
+                      card)
+    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
+    log(f"traced bitonic_global_stage_kernel (rank plane) in sort_kv 2^23 records fused: "
+        f"{g_ms:.3f} ms over {g_n} launches [{card}]")
     profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas", card)
 
     print(json.dumps({"kernels": kernels}))

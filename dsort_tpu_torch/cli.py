@@ -4,10 +4,15 @@ Counterparts of ``dsort run`` in the default SPMD mode and of the in-core
 ``dsort terasort``, sorting with `SampleSort` over a `VirtualMesh` of
 ``--workers`` shards on the GPU unless ``--device cpu``:
 
-- ``run INPUT -o OUTPUT [--exchange E]``: one int per line in and out;
+- ``run INPUT -o OUTPUT [--exchange E] [--dtype D]``: one key per line in
+  and out, read and written as ``D`` (default int32; signed and unsigned
+  ints, and floats through the order-preserving key mapping), as
+  ``dsort run --dtype`` reads it;
 - ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records,
   ordered by the full 10-byte key (8-byte prefix, then key bytes 8-9 as
-  the secondary key — which keeps the ``alltoall`` exchange).
+  the secondary key — which keeps the ``alltoall`` exchange); its keys are
+  always the uint64 prefix, so it takes no ``--dtype``, as in the
+  reference.
 
 Both take ``--kernel`` (`JobConfig.local_kernel`) and ``--merge-kernel``
 (`JobConfig.merge_kernel`), as the JAX package's common flags do.
@@ -39,7 +44,10 @@ def _common(p: argparse.ArgumentParser, default_output: str) -> None:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dsort_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    _common(sub.add_parser("run", help="sort a one-int-per-line text file"), "output.txt")
+    run = sub.add_parser("run", help="sort a one-int-per-line text file")
+    _common(run, "output.txt")
+    run.add_argument("--dtype", default="int32",
+                     help="key dtype of the file (int32, int64, uint32, uint64, float32, ...)")
     _common(
         sub.add_parser("terasort", help="sort a binary 100-byte-record file"),
         "terasort_out.bin",
@@ -56,7 +64,8 @@ def main(argv=None) -> int:
     job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel)
     ss = SampleSort(VirtualMesh(args.workers, args.device), job)
     if args.cmd == "run":
-        out = ss.sort(ingest.read_ints_file(args.input), exchange=args.exchange)
+        keys = ingest.read_ints_file(args.input, args.dtype)
+        out = ss.sort(keys, exchange=args.exchange)
         ingest.write_ints_file(args.output, out)
         return 0
     keys, payload = ingest.read_terasort_file(args.input)

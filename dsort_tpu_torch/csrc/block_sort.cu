@@ -11,8 +11,9 @@
 //
 // The host loop (dsort_tpu_torch/ops/block_sort.py) composes them: one
 // tile sort (levels k_start..T inside T-key tiles), then for every level
-// k = 2T..row_len the global stages j = k/2..T followed by one tile merge
-// (stages j = T/2..1 of level k inside each tile).
+// k = 2T..row_len its cross stages j = k/2..T in groups of at most S_max
+// consecutive stages, one global-stage launch a group, followed by one
+// tile merge (stages j = T/2..1 of level k inside each tile).
 //
 // Where the tile lives.  The tile sort keeps its tile in registers: each
 // thread holds E consecutive keys, so a stage at distance j < E pairs keys
@@ -53,6 +54,15 @@ constexpr int kWarp = 32;
 constexpr int kTileKeys = 16;
 // Threads of the largest tile the wrapper admits (8192 int32 keys).
 constexpr int kTileBlock = 8192 / kTileKeys;
+
+// S_max: the most consecutive stages of one level that a launch of
+// bitonic_global_stage_kernel runs, per key type and plane (2^S keys, and
+// ranks, a thread).  S = 1..S_max are instantiated; ops/block_sort.py's
+// STAGES_MAX mirrors this table.  On an H100 a pass cost about the same
+// at every S up to 6 for keys alone; with the rank plane S = 5 already
+// takes ~254 registers and S = 6 spills and ran twice as long.
+template <typename K, bool R>
+constexpr int kStagesMax = R ? 5 : 6;
 
 __host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
 
@@ -341,38 +351,47 @@ __global__ void __launch_bounds__(kTileBlock)
   if constexpr (R) store_run<int32_t, E>(r + base + t * E, q);
 }
 
-// Replaces the cross stages of K2 `_cross_kernel` (block_sort.py:466) and
-// K2c `_orbit_kernel` (block_sort.py:722): one compare-exchange stage at a
-// distance j >= T, one thread per pair.
-// Bound: HBM bytes, 2 n (itemsize [+ 4]) per stage (each key and rank read
-// and written once).  Design: consecutive threads own consecutive pairs, so
-// every load and store of a warp is coalesced; the level's stages are
-// separate launches (fusing a level's stages into one residency, as K2c
-// does on the TPU, is later work).
-template <typename K, bool R>
-__global__ void bitonic_global_stage_kernel(K* __restrict__ x,
-                                            int32_t* __restrict__ r,
-                                            long long rows, long long row_len,
-                                            long long k, long long j) {
-  const long long npairs = rows * (row_len >> 1);
-  const long long q =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (q >= npairs) return;
-  const long long i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-  const bool asc = ((i & (row_len - 1)) & k) == 0;
-  K a = x[i];
-  K b = x[i + j];
-  int32_t ra = 0, rb = 0;
+// Replaces K2 `_cross_kernel` (block_sort.py:466) and K2c `_orbit_kernel`
+// (block_sort.py:722): the S consecutive stages j_top, j_top/2, ..,
+// j_low = j_top >> (S-1) of level k, all at distances j >= T, in one pass.
+// Bound: HBM bytes, 2 n (itemsize [+ 4]) a launch (each key and rank read
+// and written once) whatever S is; the n S / 2 compare-exchanges stay far
+// below it.  Design: the K2c orbit with registers in place of VMEM.  The
+// stages vary only the S in-row index bits log2(j_low)..log2(j_top), so the
+// keys split into closed groups of 2^S, base + e j_low for e < 2^S; thread
+// g owns group g: the bits of g below log2(j_low) are the low bits of its
+// base and the rest go above the S group bits.  Each thread loads its
+// group (2^S independent loads in flight), runs the S stages in registers
+// (`thread_tail`), and stores it back: no shared memory, no barrier, no
+// atomic.  Consecutive threads hold consecutive columns, so with
+// j_low >= 32 each of a warp's loads and stores is one contiguous run.
+// k >= 2 j_top puts bit k of the in-row index above every group bit: one
+// direction a thread.
+template <typename K, bool R, int S>
+__global__ void __launch_bounds__(kStageThreads)
+    bitonic_global_stage_kernel(K* __restrict__ x, int32_t* __restrict__ r,
+                                long long groups, long long row_len, long long k,
+                                int lj_low) {
+  constexpr int G = 1 << S;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= groups) return;
+  const long long j_low = 1LL << lj_low;
+  const long long base = ((g >> lj_low) << (lj_low + S)) | (g & (j_low - 1));
+  const bool asc = (base & (row_len - 1) & k) == 0;
+  K v[G];
+  int32_t q[G];
+#pragma unroll
+  for (int e = 0; e < G; ++e) v[e] = x[base + e * j_low];
   if constexpr (R) {
-    ra = r[i];
-    rb = r[i + j];
+#pragma unroll
+    for (int e = 0; e < G; ++e) q[e] = r[base + e * j_low];
   }
-  compare_exchange<K, R>(a, b, ra, rb, asc);
-  x[i] = a;
-  x[i + j] = b;
+  thread_tail<K, R, G>(v, q, asc);
+#pragma unroll
+  for (int e = 0; e < G; ++e) x[base + e * j_low] = v[e];
   if constexpr (R) {
-    r[i] = ra;
-    r[i + j] = rb;
+#pragma unroll
+    for (int e = 0; e < G; ++e) r[base + e * j_low] = q[e];
   }
 }
 
@@ -438,20 +457,44 @@ int launch_tile(void* x, void* r, long long rows, long long row_len, int T,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K>
-int launch_global_stage(void* x, void* r, long long rows, long long row_len,
-                        long long k, long long j, void* stream) {
-  const long long npairs = rows * (row_len >> 1);
-  const unsigned int blocks =
-      static_cast<unsigned int>((npairs + kStageThreads - 1) / kStageThreads);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r != nullptr)
-    bitonic_global_stage_kernel<K, true><<<blocks, kStageThreads, 0, st>>>(
-        static_cast<K*>(x), static_cast<int32_t*>(r), rows, row_len, k, j);
+// Launches the instantiation S == stages (S counts down from S_max).
+template <typename K, bool R, int S>
+int launch_stages(K* x, int32_t* r, long long n, long long row_len, long long k, int lj_low,
+                  int stages, cudaStream_t st) {
+  if (stages == S) {
+    const long long groups = n >> S;
+    const unsigned int blocks =
+        static_cast<unsigned int>((groups + kStageThreads - 1) / kStageThreads);
+    bitonic_global_stage_kernel<K, R, S><<<blocks, kStageThreads, 0, st>>>(x, r, groups,
+                                                                            row_len, k, lj_low);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if constexpr (S > 1)
+    return launch_stages<K, R, S - 1>(x, r, n, row_len, k, lj_low, stages, st);
   else
-    bitonic_global_stage_kernel<K, false><<<blocks, kStageThreads, 0, st>>>(
-        static_cast<K*>(x), nullptr, rows, row_len, k, j);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Stages j = j_top .. j_top >> (stages - 1) of level k; refuses (without
+// launching) a stage count outside 1..S_max or a group that leaves the
+// level's distances or the row.
+template <typename K>
+int launch_global_stage(void* x, void* r, long long rows, long long row_len, long long k,
+                        long long j_top, int stages, void* stream) {
+  const bool ranked = r != nullptr;
+  const int s_max = ranked ? kStagesMax<K, true> : kStagesMax<K, false>;
+  if (stages < 1 || stages > s_max || (j_top >> (stages - 1)) < 1 || 2 * j_top > k ||
+      k > row_len)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int lj_low = 0;
+  while ((2LL << lj_low) <= (j_top >> (stages - 1))) ++lj_low;
+  const long long n = rows * row_len;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ranked)
+    return launch_stages<K, true, kStagesMax<K, true>>(
+        static_cast<K*>(x), static_cast<int32_t*>(r), n, row_len, k, lj_low, stages, st);
+  return launch_stages<K, false, kStagesMax<K, false>>(static_cast<K*>(x), nullptr, n, row_len,
+                                                       k, lj_low, stages, st);
 }
 
 template <typename K>
@@ -485,14 +528,22 @@ int dsort_bitonic_tile_i64(void* x, void* r, long long rows, long long row_len,
 
 int dsort_bitonic_global_stage_i32(void* x, void* r, long long rows,
                                    long long row_len, long long k, long long j,
-                                   void* stream) {
-  return launch_global_stage<int32_t>(x, r, rows, row_len, k, j, stream);
+                                   int stages, void* stream) {
+  return launch_global_stage<int32_t>(x, r, rows, row_len, k, j, stages, stream);
 }
 
 int dsort_bitonic_global_stage_i64(void* x, void* r, long long rows,
                                    long long row_len, long long k, long long j,
-                                   void* stream) {
-  return launch_global_stage<int64_t>(x, r, rows, row_len, k, j, stream);
+                                   int stages, void* stream) {
+  return launch_global_stage<int64_t>(x, r, rows, row_len, k, j, stages, stream);
+}
+
+// S_max of the global-stage kernel for keys of `key_bytes` (4 or 8), with
+// the rank plane iff `ranked`; 0 for any other key width.
+int dsort_bitonic_global_stages_max(int key_bytes, int ranked) {
+  if (key_bytes == 4) return ranked ? kStagesMax<int32_t, true> : kStagesMax<int32_t, false>;
+  if (key_bytes == 8) return ranked ? kStagesMax<int64_t, true> : kStagesMax<int64_t, false>;
+  return 0;
 }
 
 int dsort_bitonic_tile_merge_i32(void* x, void* r, long long rows,

@@ -4,8 +4,11 @@ Counterpart of ``dsort_tpu/data/ingest.py`` in plain numpy (the native C++
 text IO is not ported yet), byte-compatible with the reference:
 
 - ``read_ints_file`` / ``write_ints_file``: one decimal int per line,
-  ``\\n``-terminated (the reference's ``input.txt`` / ``output.txt``); keys
-  outside the dtype's range raise `OverflowError` instead of wrapping;
+  ``\\n``-terminated (the reference's ``input.txt`` / ``output.txt``), read
+  in ``np.loadtxt``'s grammar as the reference's fallback reads it (``#``
+  comments, ``+`` signs); keys outside the dtype's range raise
+  `OverflowError` instead of wrapping; float dtypes read and write
+  round-trip decimal text;
 - TeraSort's 100-byte binary records (`read_terasort_file`,
   `write_terasort_file`, `gen_terasort`).
 """
@@ -17,11 +20,28 @@ import os
 import numpy as np
 
 
+def _strip_comments(raw: bytes) -> bytes:
+    """Drop everything from a ``#`` to the end of its line."""
+    if b"#" not in raw:
+        return raw
+    return b"\n".join(line.split(b"#", 1)[0] for line in raw.split(b"\n"))
+
+
 def read_ints_file(path: str | os.PathLike, dtype=np.int32) -> np.ndarray:
-    """Read an ASCII file of whitespace-separated ints into integer ``dtype``."""
+    """Read an ASCII file of whitespace-separated numbers into ``dtype``.
+
+    ``#`` starts a comment, on a line of its own or after a number, and
+    ints may carry a ``+`` sign: ``np.loadtxt``'s grammar, which the
+    reference falls back to.  An integer ``dtype`` takes decimal ints only;
+    a float ``dtype`` also takes ``nan`` / ``inf`` and exponents.
+    """
     dtype = np.dtype(dtype)
     with open(path, "rb") as f:
-        tokens = f.read().split()
+        tokens = _strip_comments(f.read()).split()
+    if dtype.kind == "f":
+        return np.array(tokens, dtype=dtype)
+    if dtype.kind not in "iu":
+        raise TypeError(f"read_ints_file reads integer or float keys, not {dtype}")
     # Parse at full width (numpy raises OverflowError past 64 bits), then
     # range-check: a narrowing cast would wrap silently.
     wide = np.uint64 if np.issubdtype(dtype, np.unsignedinteger) else np.int64
@@ -35,9 +55,15 @@ def read_ints_file(path: str | os.PathLike, dtype=np.int32) -> np.ndarray:
 
 
 def write_ints_file(path: str | os.PathLike, data: np.ndarray) -> None:
-    """Write one int per line (byte-compatible with the reference)."""
+    """Write one int per line (byte-compatible with the reference); floats
+    with enough digits (9 for float32, 17 for float64) to read back to the
+    same value."""
     data = np.asarray(data).reshape(-1)
-    text = "".join(f"{v}\n" for v in data.tolist())
+    if data.dtype.kind == "f":
+        digits = 9 if data.dtype.itemsize <= 4 else 17
+        text = "".join(f"{v:.{digits}g}\n" for v in data.tolist())
+    else:
+        text = "".join(f"{v}\n" for v in data.tolist())
     with open(path, "wb") as f:
         f.write(text.encode("ascii"))
 

@@ -34,9 +34,9 @@ NVCC_FLAGS = (
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _BITONIC = {
-    # (keys, ranks or NULL, rows, row_len, T | k, k_start | k | j, stream)
+    # (keys, ranks or NULL, rows, row_len, T | k, k_start | k | j[, stages], stream)
     "tile": (_P, _P, _LL, _LL, _I, _LL, _P),
-    "global_stage": (_P, _P, _LL, _LL, _LL, _LL, _P),
+    "global_stage": (_P, _P, _LL, _LL, _LL, _LL, _I, _P),
     "tile_merge": (_P, _P, _LL, _LL, _I, _LL, _P),
 }
 #: C entry points and their argument types.
@@ -45,6 +45,8 @@ SIGNATURES = {
         f"dsort_bitonic_{name}_{suffix}": argtypes
         for name, argtypes in _BITONIC.items() for suffix in ("i32", "i64")
     },
+    # (key bytes, ranked) -> S_max of the global-stage kernel
+    "dsort_bitonic_global_stages_max": (_I, _I),
     # (xs, starts, lens, payload, wk, wt, wv, P, n_local, slot, row_bytes,
     #  host caps, stream)
     **{

@@ -16,8 +16,10 @@ here:
                                                       on warp shuffles,
                                                       j >= 512 through
                                                       shared memory
-  bitonic_global_stage_kernel  K2, K2c (one stage     HBM, one pair a      `global_stage_plain`
-  (`bitonic_global_stage`)     j>=T per launch)       thread
+  bitonic_global_stage_kernel  K2, K2c (up to       registers: the 2^S   `global_stage_plain`
+  (`bitonic_global_stage`)     S_max stages j>=T of   keys S stages of a
+                               one level per launch)  level touch, a
+                                                      thread; one HBM pass
   bitonic_tile_merge_kernel    in-block tails of      shared memory, one   `tile_merge_plain`
   (`bitonic_tile_merge`)       K2a, K2b/K3            pair a thread
   ===========================  =====================  ===================  ====================
@@ -32,6 +34,12 @@ permutation.  The 64-bit ``(hi, lo)`` plane split of the reference is a
 Mosaic constraint and is not copied: int64 keys are compared natively.
 Unsigned and float keys ride as order-preserving signed ints
 (`ops.float_order`).
+
+The host loop (`_network`) runs a level's cross stages ``j = k/2..T`` in
+groups of at most ``S_max`` consecutive stages (`_cross_groups`), one
+global-stage launch a group; ``S_max`` per key type and plane is
+`STAGES_MAX`, the mirror of ``kStagesMax`` in the ``.cu``.  The CPU runs
+the same groups through the plain version.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; anything else raises.  `launch_counts` counts the
@@ -52,6 +60,15 @@ from dsort_tpu_torch.ops.local_sort import sentinel_for
 TILE = 4096
 _SMEM_BYTES = 48 * 1024
 _KERNEL_DTYPES = (torch.int32, torch.int64)
+#: S_max: the most consecutive stages of one level a global-stage launch
+#: runs, per (key dtype, rank plane present); mirrors ``kStagesMax`` in
+#: ``csrc/block_sort.cu``, which instantiates S = 1..S_max.
+STAGES_MAX = {
+    (torch.int32, False): 6,
+    (torch.int32, True): 5,
+    (torch.int64, False): 6,
+    (torch.int64, True): 5,
+}
 
 
 def _is_pow2(v: int) -> bool:
@@ -110,10 +127,13 @@ def tile_sort_plain(
 
 
 def global_stage_plain(
-    x: torch.Tensor, k: int, j: int, r: torch.Tensor | None = None
+    x: torch.Tensor, k: int, j: int, r: torch.Tensor | None = None, stages: int = 1
 ) -> torch.Tensor:
-    """One stage ``(k, j)`` over whole rows, in place."""
-    return _stage_plain(x, k, j, r)
+    """Stages ``j, j/2, .., j >> (stages-1)`` of level ``k`` over whole
+    rows, in place."""
+    for s in range(stages):
+        _stage_plain(x, k, j >> s, r)
+    return x
 
 
 def tile_merge_plain(
@@ -198,16 +218,22 @@ def bitonic_tile(
 
 
 def bitonic_global_stage(
-    x: torch.Tensor, k: int, j: int, r: torch.Tensor | None = None
+    x: torch.Tensor, k: int, j: int, r: torch.Tensor | None = None, stages: int = 1
 ) -> torch.Tensor:
-    """One compare-exchange stage ``(k, j)`` across whole rows (K2 / K2c),
-    in place."""
+    """Compare-exchange stages ``j, j/2, .., j >> (stages-1)`` of level
+    ``k`` across whole rows in one pass (K2 / K2c), in place."""
     _check(x, None, r)
     if not (_is_pow2(k) and _is_pow2(j) and j < k <= x.shape[1]):
         raise ValueError(f"need powers of two j < k <= row_len, got k={k} j={j}")
+    s_max = STAGES_MAX[(x.dtype, r is not None)]
+    if not (1 <= stages <= s_max and j >> (stages - 1) >= 1):
+        raise ValueError(
+            f"stages must be in [1, {s_max}] with j >> (stages-1) >= 1, got "
+            f"stages={stages} j={j}"
+        )
     if not _route(x):
-        return global_stage_plain(x, k, j, r)
-    _launch("bitonic_global_stage", x, r, k, j)
+        return global_stage_plain(x, k, j, r, stages)
+    _launch("bitonic_global_stage", x, r, k, j, stages)
     return x
 
 
@@ -250,6 +276,19 @@ def launch_counts() -> dict[str, int]:
 # -- the host loop -----------------------------------------------------------
 
 
+def _cross_groups(k: int, tile: int, s_max: int) -> list[tuple[int, int]]:
+    """Level ``k``'s cross stages ``j = k/2..tile`` as ``(j_top, stages)``
+    groups of at most ``s_max`` consecutive stages, top-down."""
+    groups = []
+    j, left = k // 2, (k // tile).bit_length() - 1
+    while left > 0:
+        s = min(s_max, left)
+        groups.append((j, s))
+        j >>= s
+        left -= s
+    return groups
+
+
 def _network(
     x: torch.Tensor, tile: int, k_start: int = 2, r: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -257,15 +296,14 @@ def _network(
     rank plane ``r``), in place."""
     row_len = x.shape[1]
     t = min(tile, row_len)
+    s_max = STAGES_MAX[(x.dtype, r is not None)]
     k = k_start
     if k <= t:
         bitonic_tile(x, t, k, r)
         k = 2 * t
     while k <= row_len:
-        j = k // 2
-        while j >= t:
-            bitonic_global_stage(x, k, j, r)
-            j //= 2
+        for j, stages in _cross_groups(k, t, s_max):
+            bitonic_global_stage(x, k, j, r, stages)
         bitonic_tile_merge(x, t, k, r)
         k *= 2
     return x

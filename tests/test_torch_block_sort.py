@@ -21,6 +21,10 @@ from test_block_sort import _deep_interpret_ok
 
 # The JAX kernels' tile (rows=8 x 128 lanes) in keys.
 JAX_TILE = 8 * 128
+# Port tiles of the deep cases: the JAX tile, and a small one that leaves
+# 2^7 or more tiles a row, so a level's cross stages split into a full
+# group of S_max stages and a remainder (S_max <= 6).
+DEEP_TILES = (JAX_TILE, 128)
 
 
 @pytest.fixture(scope="module")
@@ -99,8 +103,9 @@ def test_block_sort_deep_matches_jax(dtype, deep):
     rng = np.random.default_rng(3)
     x = _keys(rng, 9000, dtype)
     ref = np.asarray(jb.block_sort(jnp.asarray(x), block_rows=64, tile_rows=8, interpret=True))
-    out = tb.block_sort(torch.from_numpy(x), tile=JAX_TILE).numpy()
-    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    for tile in DEEP_TILES:
+        out = tb.block_sort(torch.from_numpy(x), tile=tile).numpy()
+        np.testing.assert_array_equal(_bits(out), _bits(ref))
     np.testing.assert_array_equal(out, np.sort(x))
 
 
@@ -147,8 +152,9 @@ def test_block_merge_runs_deep_matches_jax(deep):
     rng = np.random.default_rng(5)
     runs = _sorted_runs(rng, 8, 4096, np.int32)
     ref = np.asarray(jb.block_merge_runs(jnp.asarray(runs), block_rows=64, interpret=True))
-    out = tb.block_merge_runs(torch.from_numpy(runs), tile=JAX_TILE).numpy()
-    np.testing.assert_array_equal(out, ref)
+    for tile in DEEP_TILES:
+        out = tb.block_merge_runs(torch.from_numpy(runs), tile=tile).numpy()
+        np.testing.assert_array_equal(out, ref)
 
 
 @pytest.mark.parametrize("r,l", [(1, 777), (2, 1), (7, 130), (8, 4096)])
@@ -176,12 +182,16 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     np.testing.assert_array_equal(got.numpy(), tb.tile_sort_plain(x.clone(), 1024).numpy())
     got = tb.bitonic_global_stage(x.clone(), 4096, 1024)
     np.testing.assert_array_equal(got.numpy(), tb.global_stage_plain(x.clone(), 4096, 1024).numpy())
+    got = tb.bitonic_global_stage(x.clone(), 4096, 2048, stages=3)
+    np.testing.assert_array_equal(
+        got.numpy(), tb.global_stage_plain(x.clone(), 4096, 2048, stages=3).numpy())
     got = tb.bitonic_tile_merge(x.clone(), 1024, 4096)
     np.testing.assert_array_equal(got.numpy(), tb.tile_merge_plain(x.clone(), 1024, 4096).numpy())
     assert not any(tb.launch_counts().values())
 
 
-@pytest.mark.parametrize("bad", ["dtype", "row_len", "tile", "contiguous", "device", "k"])
+@pytest.mark.parametrize("bad", ["dtype", "row_len", "tile", "contiguous", "device", "k",
+                                 "no_stages", "stages_over_max", "stages_past_j"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     x = torch.zeros((2, 4096), dtype=torch.int32)
     call = lambda: tb.bitonic_tile(x, 1024)  # noqa: E731
@@ -195,10 +205,97 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         x = torch.zeros((4096, 2), dtype=torch.int32).t()
     elif bad == "device":
         x = torch.zeros((2, 4096), dtype=torch.int32, device="meta")
-    else:
+    elif bad == "k":
         call = lambda: tb.bitonic_global_stage(x, 2048, 2048)  # noqa: E731
+    elif bad == "no_stages":
+        call = lambda: tb.bitonic_global_stage(x, 4096, 2048, stages=0)  # noqa: E731
+    elif bad == "stages_over_max":
+        s_max = tb.STAGES_MAX[(torch.int32, False)]
+        call = lambda: tb.bitonic_global_stage(x, 4096, 2048, stages=s_max + 1)  # noqa: E731
+    else:  # the group's last stage would sit below j = 1
+        call = lambda: tb.bitonic_global_stage(x, 4096, 4, stages=4)  # noqa: E731
     with pytest.raises((ValueError, TypeError)):
         call()
+
+
+# -- the grouped cross stages -------------------------------------------------
+
+
+@pytest.mark.parametrize("s_max", [1, 4, 5])
+@pytest.mark.parametrize("g", [1, 4, 5, 6, 11, 14])
+def test_cross_groups_cover_each_stage_once(g, s_max):
+    """A level with g cross stages: every j from k/2 down to the tile once,
+    in order, in ceil(g / s_max) groups of at most s_max stages."""
+    tile = 64
+    k = tile << g
+    groups = tb._cross_groups(k, tile, s_max)
+    stages = [j >> s for j, n in groups for s in range(n)]
+    assert stages == [k >> e for e in range(1, g + 1)]
+    assert len(groups) == -(-g // s_max)
+    assert all(1 <= n <= s_max for _, n in groups)
+
+
+def test_stages_max_table_covers_every_kernel_type():
+    assert set(tb.STAGES_MAX) == {(d, r) for d in (torch.int32, torch.int64) for r in (False, True)}
+    assert all(1 <= v <= 6 for v in tb.STAGES_MAX.values())
+
+
+@pytest.mark.parametrize("ranked", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_global_stage_plain_stages_equal_successive_stages(dtype, ranked):
+    """``stages=s`` (and the wrapper on a CPU tensor) equals s one-stage
+    calls from j down, for every s up to S_max, at the top and the bottom
+    of a level; keys % 7 with ranks in {0, 1, 2} (full ties) for the rank
+    plane."""
+    rng = np.random.default_rng(41)
+    rows, row_len = 3, 1 << 10
+    keys = _keys(rng, rows * row_len, dtype).reshape(rows, row_len)
+    ranks = None
+    if ranked:
+        keys = keys % 7
+        ranks = torch.from_numpy(rng.integers(0, 3, (rows, row_len)).astype(np.int32))
+    x = torch.from_numpy(keys)
+    for s in range(1, tb.STAGES_MAX[(x.dtype, ranked)] + 1):
+        for k, j in ((row_len, row_len // 2), (row_len // 2, 1 << (s - 1))):
+            want, wr = x.clone(), None if ranks is None else ranks.clone()
+            for e in range(s):
+                tb.global_stage_plain(want, k, j >> e, wr)
+            for fn in (tb.global_stage_plain, tb.bitonic_global_stage):
+                got, gr = x.clone(), None if ranks is None else ranks.clone()
+                fn(got, k, j, gr, stages=s)
+                assert torch.equal(got, want), (s, k, j)
+                if ranked:
+                    assert torch.equal(gr, wr), (s, k, j)
+
+
+@pytest.mark.parametrize("ranked", [False, True])
+def test_network_runs_one_global_stage_call_per_group(monkeypatch, ranked):
+    """The host loop on the CPU issues the same grouped calls as on the
+    card: per level k > T, `_cross_groups` in order, then one tile merge."""
+    calls = []
+    real = tb.bitonic_global_stage
+
+    def spy(x, k, j, r=None, stages=1):
+        calls.append((k, j, stages))
+        return real(x, k, j, r, stages)
+
+    monkeypatch.setattr(tb, "bitonic_global_stage", spy)
+    rng = np.random.default_rng(42)
+    n, tile = 1 << 13, 32
+    x = _keys(rng, n, np.int32)
+    if ranked:
+        r = rng.permutation(n).astype(np.int32)
+        out_k, out_r = tb.block_sort_pairs(torch.from_numpy(x), torch.from_numpy(r), tile=tile)
+        order = np.lexsort((r, x))
+        np.testing.assert_array_equal(out_r.numpy(), r[order])
+    else:
+        out_k = tb.block_sort(torch.from_numpy(x), tile=tile)
+    np.testing.assert_array_equal(out_k.numpy(), np.sort(x))
+    s_max = tb.STAGES_MAX[(torch.int32, ranked)]
+    want = [(k, j, s) for k in (tile << e for e in range(1, 9))
+            for j, s in tb._cross_groups(k, tile, s_max)]
+    assert calls == want
+    assert len(calls) == sum(-(-g // s_max) for g in range(1, 9))
 
 
 # -- the rank plane ----------------------------------------------------------
@@ -294,9 +391,10 @@ def test_block_sort_pairs_deep_matches_jax(dtype, deep):
     ref_k, ref_r = jb.block_sort_pairs(
         jnp.asarray(k), jnp.asarray(r), block_rows=64, tile_rows=8, interpret=True
     )
-    out_k, out_r = tb.block_sort_pairs(torch.from_numpy(k), torch.from_numpy(r), tile=JAX_TILE)
-    np.testing.assert_array_equal(_bits(out_k.numpy()), _bits(np.asarray(ref_k)))
-    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+    for tile in DEEP_TILES:
+        out_k, out_r = tb.block_sort_pairs(torch.from_numpy(k), torch.from_numpy(r), tile=tile)
+        np.testing.assert_array_equal(_bits(out_k.numpy()), _bits(np.asarray(ref_k)))
+        np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
 
 
 def _kv_runs(rng, r, l, dtype, case):
@@ -340,10 +438,11 @@ def test_block_merge_runs_kv_deep_matches_jax(deep):
     ref_k, ref_r = jb.block_merge_runs_kv(
         jnp.asarray(k), jnp.asarray(rank), block_rows=64, interpret=True
     )
-    out_k, out_r = tb.block_merge_runs_kv(torch.from_numpy(k), torch.from_numpy(rank),
-                                          tile=JAX_TILE)
-    np.testing.assert_array_equal(out_k.numpy(), np.asarray(ref_k))
-    np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
+    for tile in DEEP_TILES:
+        out_k, out_r = tb.block_merge_runs_kv(torch.from_numpy(k), torch.from_numpy(rank),
+                                              tile=tile)
+        np.testing.assert_array_equal(out_k.numpy(), np.asarray(ref_k))
+        np.testing.assert_array_equal(out_r.numpy(), np.asarray(ref_r))
 
 
 def test_block_merge_runs_kv_batched_and_small_tile():

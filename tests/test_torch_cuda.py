@@ -110,6 +110,48 @@ def test_kernels_match_plain_versions(cuda, dtype, ranked, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ranked", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_global_stage_groups_match_plain_version(cuda, dtype, ranked):
+    """The global-stage kernel bit-identical to ``global_stage_plain(...,
+    stages=s)`` for every s up to S_max, for the top group of the top level
+    (j = row_len/2) and the bottom group of a lower level (j_low = T, both
+    directions in a row), on random keys, keys % 7 with permuted ranks and
+    with ranks in {0, 1, 2}; one launch counted per call.  The library's
+    S_max equals `STAGES_MAX`."""
+    from dsort_tpu_torch.ops._build import library
+
+    t = torch.from_numpy(np.zeros(0, dtype)).dtype
+    s_max = tb.STAGES_MAX[(t, ranked)]
+    assert library().dsort_bitonic_global_stages_max(t.itemsize, int(ranked)) == s_max
+    rng = np.random.default_rng(16)
+    rows, row_len = 4, 1 << 19
+    inputs = [(_keys(rng, (rows, row_len), dtype), None)]
+    if ranked:
+        perm = rng.permutation(rows * row_len).astype(np.int32).reshape(rows, row_len)
+        mod7 = _keys(rng, (rows, row_len), dtype) % 7
+        inputs = [(inputs[0][0], perm), (mod7, perm),
+                  (mod7, rng.integers(0, 3, (rows, row_len)).astype(np.int32))]
+    plane = tb.RANK if ranked else ""
+    for keys, ranks in inputs:
+        x = torch.from_numpy(keys).to(cuda)
+        r = torch.from_numpy(ranks).to(cuda) if ranked else None
+        for s in range(1, s_max + 1):
+            for k, j in ((row_len, row_len // 2), (row_len // 2, tb.TILE << (s - 1))):
+                kx, kr = x.clone(), r.clone() if ranked else None
+                px, pr = x.clone(), r.clone() if ranked else None
+                tb.reset_launch_counts()
+                tb.bitonic_global_stage(kx, k, j, kr, stages=s)
+                assert tb.launch_counts()["bitonic_global_stage_kernel" + plane] == 1
+                assert sum(tb.launch_counts().values()) == 1
+                tb.global_stage_plain(px, k, j, pr, stages=s)
+                torch.cuda.synchronize()
+                assert torch.equal(kx, px), (s, k, j)
+                if ranked:
+                    assert torch.equal(kr, pr), (s, k, j)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64, np.uint64])
 def test_block_sort_and_merge_on_cuda(cuda, dtype):
     rng = np.random.default_rng(9)
