@@ -11,11 +11,13 @@ Phases (any failure raises, so the exit code is non-zero):
    main path's shapes: the block kernels for int32 and int64 keys, keys
    alone and with the int32 rank plane; the global-stage kernel for every
    stage count S = 1..S_max, at the top group of the top level and the
-   bottom group (j_low = T) of a lower one; the tile kernel also at every tile
-   it admits (2 keys up to 8192 / 4096), k_start in {2, 4, T/2, T}, with
-   full (key, rank) ties and extreme keys; the ring exchange kernel on the
-   plan of a 2^26 int32 sort (keys) and of a 2^23-record TeraSort sort
-   (kv); the payload gather with 92-byte rows;
+   bottom group (j_low = T) of a lower one; the tile merge at k = row_len
+   and at k = 2T (tiles of both directions in a row); the tile kernel and
+   the tile merge also at every tile they admit (2 keys up to 8192 / 4096),
+   the tile kernel at k_start in {2, 4, T/2, T}, the merge at k in {2T, 4T,
+   8T}, with full (key, rank) ties and extreme keys; the ring exchange
+   kernel on the plan of a 2^26 int32 sort (keys) and of a 2^23-record
+   TeraSort sort (kv); the payload gather with 92-byte rows;
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
@@ -41,8 +43,10 @@ Phases (any failure raises, so the exit code is non-zero):
    kernel's pass at every S; the host-to-host
    sorts under each exchange and under ``pallas`` against ``auto``;
    ``pallas_sort`` / ``pallas_sort_kv`` against ``torch.sort``; records/s
-   of ``sort_kv``; device traces, with the traced sum of the global-stage
-   kernel in the 2^26 sort and in ``block_sort`` of 2^26.
+   of ``sort_kv``; the tile merge also at the post-exchange shape (8 x
+   2^24 int32); device traces, with the traced sums of the global-stage
+   kernel and of the tile merge in the 2^26 sort, in ``block_sort`` of 2^26
+   and in the 2^23-record ``fused`` sort.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -357,15 +361,19 @@ def main() -> int:
     for dtype, (rows, row_len) in shapes.items():
         x = torch.from_numpy(random_keys(rng, (rows, row_len), dtype)).to(dev)
         checks = [
-            ("bitonic_tile_kernel", lambda t: tb.bitonic_tile(t, T),
+            ("bitonic_tile_kernel", "k_start=2", lambda t: tb.bitonic_tile(t, T),
              lambda t: tb.tile_sort_plain(t, T)),
-            ("bitonic_tile_kernel", lambda t: tb.bitonic_tile(t, T, 512),
+            ("bitonic_tile_kernel", "k_start=512", lambda t: tb.bitonic_tile(t, T, 512),
              lambda t: tb.tile_sort_plain(t, T, 512)),
-            ("bitonic_tile_merge_kernel", lambda t: tb.bitonic_tile_merge(t, T, row_len),
+            ("bitonic_tile_merge_kernel", "k=row_len",
+             lambda t: tb.bitonic_tile_merge(t, T, row_len),
              lambda t: tb.tile_merge_plain(t, T, row_len)),
+            ("bitonic_tile_merge_kernel", "k=2T (tiles of both directions)",
+             lambda t: tb.bitonic_tile_merge(t, T, 2 * T),
+             lambda t: tb.tile_merge_plain(t, T, 2 * T)),
         ]
-        for name, kernel, plain in checks:
-            hold(name, f"{np.dtype(dtype).name} {rows}x{row_len}",
+        for name, what, kernel, plain in checks:
+            hold(name, f"{np.dtype(dtype).name} {rows}x{row_len} {what}",
                  lambda: (kernel(x.clone()),), lambda: (plain(x.clone()),))
         hold_stages(x, None, f"{np.dtype(dtype).name} {rows}x{row_len}")
         del x
@@ -380,46 +388,64 @@ def main() -> int:
         hold_stages(x, r, f"{label}, keys % 4096")
         hold_stages(x % 7, r, f"{label}, keys % 7")
         rank_checks = [
-            ("bitonic_tile_kernel", lambda t, q: tb.bitonic_tile(t, T, 2, q),
+            ("bitonic_tile_kernel", "k_start=2", lambda t, q: tb.bitonic_tile(t, T, 2, q),
              lambda t, q: tb.tile_sort_plain(t, T, 2, q)),
-            ("bitonic_tile_merge_kernel", lambda t, q: tb.bitonic_tile_merge(t, T, kv_len, q),
+            ("bitonic_tile_merge_kernel", "k=row_len",
+             lambda t, q: tb.bitonic_tile_merge(t, T, kv_len, q),
              lambda t, q: tb.tile_merge_plain(t, T, kv_len, q)),
+            ("bitonic_tile_merge_kernel", "k=2T (tiles of both directions)",
+             lambda t, q: tb.bitonic_tile_merge(t, T, 2 * T, q),
+             lambda t, q: tb.tile_merge_plain(t, T, 2 * T, q)),
         ]
-        for name, kernel, plain in rank_checks:
+        for name, what, kernel, plain in rank_checks:
             def run(fn):
                 t, q = x.clone(), r.clone()
                 fn(t, q)
                 return t, q
-            hold(name + RANK, label, lambda: run(kernel), lambda: run(plain))
+            hold(name + RANK, f"{label} {what}", lambda: run(kernel), lambda: run(plain))
         del x, r
 
-    # The tile kernel at every shape the wrapper admits: each tile from 2 keys
-    # (one thread) to the shared-memory limit, k_start in {2, 4, T/2, T},
-    # both key types, keys alone and with the rank plane, on small batches.
-    # Own generator, so the data of the phases below stay as they were.
+    # The tile kernel and the tile merge at every shape the wrapper admits:
+    # each tile from 2 keys (one thread) to the shared-memory limit, both key
+    # types, keys alone and with the rank plane, on small batches; the tile
+    # kernel at k_start in {2, 4, T/2, T}, the merge at k in {2T, 4T, 8T}
+    # on rows of 8T, so rows hold tiles of both directions.  Own generator,
+    # so the data of the phases below stay as they were.
     wrng = np.random.default_rng(5)
-    for dtype in (np.int32, np.int64):
-        for ranked in (False, True):
-            cases, tile = 0, 2
-            while tile <= tile_limit(dtype, ranked):
-                for k_start in sorted({k for k in (2, 4, tile // 2, tile) if 2 <= k <= tile}):
-                    for label, keys, ranks in tile_inputs(wrng, (3, 2 * tile), dtype, ranked):
-                        x = torch.from_numpy(keys).to(dev)
-                        q = torch.from_numpy(ranks).to(dev) if ranked else None
-                        px, pq = x.clone(), (q.clone() if ranked else None)
-                        tb.bitonic_tile(x, tile, k_start, q)
-                        tb.tile_sort_plain(px, tile, k_start, pq)
-                        torch.cuda.synchronize()
-                        if not (torch.equal(x, px) and (not ranked or torch.equal(q, pq))):
-                            raise AssertionError(
-                                f"bitonic_tile_kernel {np.dtype(dtype).name} ranked={ranked} "
-                                f"T={tile} k_start={k_start} {label}: disagrees with its plain "
-                                "version")
-                        cases += 1
-                tile *= 2
-            log(f"check bitonic_tile_kernel{RANK if ranked else ''} sweep "
-                f"{np.dtype(dtype).name}: {cases} cases, T=2..{tile // 2}, "
-                f"k_start in {{2, 4, T/2, T}}, random / ties / extreme keys: bit-identical=True")
+
+    def sweep(name, kernel, plain, params, row_len, what):
+        """``kernel(x, tile, p, ranks)`` bit-identical to ``plain`` for every
+        admitted tile, each ``p`` in ``params(tile)``, on 3 rows of
+        ``row_len(tile)`` keys."""
+        for dtype in (np.int32, np.int64):
+            for ranked in (False, True):
+                cases, tile = 0, 2
+                while tile <= tile_limit(dtype, ranked):
+                    for p in params(tile):
+                        for label, keys, ranks in tile_inputs(wrng, (3, row_len(tile)), dtype,
+                                                              ranked):
+                            x = torch.from_numpy(keys).to(dev)
+                            q = torch.from_numpy(ranks).to(dev) if ranked else None
+                            px, pq = x.clone(), (q.clone() if ranked else None)
+                            kernel(x, tile, p, q)
+                            plain(px, tile, p, pq)
+                            torch.cuda.synchronize()
+                            if not (torch.equal(x, px) and (not ranked or torch.equal(q, pq))):
+                                raise AssertionError(
+                                    f"{name} {np.dtype(dtype).name} ranked={ranked} T={tile} "
+                                    f"at {p} ({what}) {label}: disagrees with its plain "
+                                    "version")
+                            cases += 1
+                    tile *= 2
+                log(f"check {name}{RANK if ranked else ''} sweep {np.dtype(dtype).name}: "
+                    f"{cases} cases, T=2..{tile // 2}, {what}, random / ties / extreme keys: "
+                    "bit-identical=True")
+
+    sweep("bitonic_tile_kernel", tb.bitonic_tile, tb.tile_sort_plain,
+          lambda t: sorted({k for k in (2, 4, t // 2, t) if 2 <= k <= t}), lambda t: 2 * t,
+          "k_start in {2, 4, T/2, T}")
+    sweep("bitonic_tile_merge_kernel", tb.bitonic_tile_merge, tb.tile_merge_plain,
+          lambda t: (2 * t, 4 * t, 8 * t), lambda t: 8 * t, "k in {2T, 4T, 8T = row_len}")
 
     mesh = VirtualMesh(P)
     x32 = random_keys(rng, n32, np.int32)
@@ -782,11 +808,24 @@ def main() -> int:
           lambda: tb.global_stage_plain(x, row_len, row_len // 2, stages=s32), None, 2 * n * 4,
           n * s32, f"int32 {rows}x{row_len} S={s32}, library null: a stage is two torch calls "
           "(minimum and maximum of strided views), S stages 2S")
+    # At k = row_len every tile ascends and the merge sorts a bitonic tile:
+    # torch.sort of the tile rows computes the same function.
     entry("bitonic_tile_merge_kernel", SOURCES["block"],
           main_launches["bitonic_tile_merge_kernel"],
           lambda: tb.bitonic_tile_merge(x, T, row_len),
-          lambda: tb.tile_merge_plain(x, T, row_len), None, 2 * n * 4, n * log_t,
-          f"int32 {rows}x{row_len}")
+          lambda: tb.tile_merge_plain(x, T, row_len),
+          lambda: torch.sort(x.view(-1, T), dim=-1), 2 * n * 4, n * log_t,
+          f"int32 {rows}x{row_len}, library torch.sort of the {T}-key tile rows")
+    # The post-exchange merge levels run at 8 x 2^24 (P slots of cap_pair
+    # keys a row, padded to a power of two): 3 of the 2^26 sort's launches.
+    x24 = torch.from_numpy(random_keys(rng, (rows, 2 * row_len), np.int32)).to(dev)
+    m24_ms = cuda_ms(lambda: tb.bitonic_tile_merge(x24, T, 2 * row_len))
+    m24_lib = cuda_ms(lambda: torch.sort(x24.view(-1, T), dim=-1))
+    m24_bound, m24_by = bound_ms(2 * x24.numel() * 4, x24.numel() * log_t)
+    log(f"time bitonic_tile_merge_kernel int32 {rows}x{2 * row_len} (post-exchange merge): "
+        f"{m24_ms:.4f} ms, library {m24_lib:.4f} ms, bound {m24_bound:.4f} ms ({m24_by}) "
+        f"[{card}]")
+    del x24
     # K1b: the tile kernel entered at k_start = 512 (runs of 256 merged up to
     # the tile), as block_merge_runs does for runs shorter than a tile.
     k1b_ms = cuda_ms(lambda: tb.bitonic_tile(x, T, 512))
@@ -813,9 +852,10 @@ def main() -> int:
           lambda: tb.global_stage_plain(xk, kv_len, kv_len // 2, rq, s64r), None, 2 * nk * 12,
           nk * s64r, f"int64+int32 rank {kv_rows}x{kv_len} S={s64r}, library null: torch has "
           "no lexicographic (key, rank) compare-exchange")
-    # The global-stage pass at every S it takes, per key type and plane, at
-    # the main path's shapes (8 x 2^23 int32, 8 x 2^21 int64, the records'
-    # 8 x 2^21 with the rank plane): ms a pass and a stage, and the bound.
+    # The global-stage pass at every S it takes, and the tile merge, per key
+    # type and plane, at the main path's shapes (8 x 2^23 int32, 8 x 2^21
+    # int64, the records' 8 x 2^21 with the rank plane): ms a pass and a
+    # stage, and the bound.
     trng = np.random.default_rng(7)
     for dtype, ranked, (prow, plen) in (
         (np.int32, False, (rows, row_len)), (np.int64, False, shapes[np.int64]),
@@ -833,6 +873,9 @@ def main() -> int:
         log(f"time bitonic_global_stage_kernel{RANK if ranked else ''} by S "
             f"{np.dtype(dtype).name} {prow}x{plen}: {', '.join(parts)}; bound {b_ms:.4f} ms "
             f"a pass [{card}]")
+        tm_ms = cuda_ms(lambda: tb.bitonic_tile_merge(xs_, T, plen, rs_))
+        log(f"time bitonic_tile_merge_kernel{RANK if ranked else ''} {np.dtype(dtype).name} "
+            f"{prow}x{plen}: {tm_ms:.4f} ms; bound {b_ms:.4f} ms [{card}]")
         del xs_, rs_
     entry("bitonic_tile_merge_kernel" + RANK, SOURCES["block"],
           kv_launches["bitonic_tile_merge_kernel" + RANK],
@@ -913,9 +956,10 @@ def main() -> int:
     log(f"time block_sort int32 n=2^26: {bs_ms:.3f} ms ({n32 / bs_ms / 1e6:.3f} Gkeys/s), "
         f"torch.sort {ts_ms:.3f} ms ({n32 / ts_ms / 1e6:.3f} Gkeys/s) [{card}]")
     by_name = profile(lambda: tb.block_sort(xf), "block_sort int32 n=2^26", card)
-    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
-    log(f"traced bitonic_global_stage_kernel in block_sort int32 n=2^26: {g_ms:.3f} ms over "
-        f"{g_n} launches; torch.sort of the same {ts_ms:.3f} ms [{card}]")
+    for kname in ("bitonic_global_stage_kernel", "bitonic_tile_merge_kernel"):
+        g_ms, g_n = traced(by_name, kname)
+        log(f"traced {kname} in block_sort int32 n=2^26: {g_ms:.3f} ms over {g_n} launches; "
+            f"torch.sort of the same {ts_ms:.3f} ms [{card}]")
     del xf
     def by_exchange(label, run, unit, scale):
         """Host-to-host time of ``run(exchange)`` per exchange, in turns
@@ -955,15 +999,17 @@ def main() -> int:
         ss.sort_kv(tk, tv, m, exchange=exchange)
         log(f"phases sort_kv 2^23 records {exchange}: {json.dumps(m.summary())} [{card}]")
     by_name = profile(lambda: ss.sort(x32), "SampleSort int32 n=2^26 alltoall", card)
-    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
-    log(f"traced bitonic_global_stage_kernel in SampleSort int32 n=2^26 alltoall: {g_ms:.3f} ms "
-        f"over {g_n} launches [{card}]")
+    for kname in ("bitonic_global_stage_kernel", "bitonic_tile_merge_kernel"):
+        g_ms, g_n = traced(by_name, kname)
+        log(f"traced {kname} in SampleSort int32 n=2^26 alltoall: {g_ms:.3f} ms over {g_n} "
+            f"launches [{card}]")
     profile(lambda: ss.sort(x32, exchange="fused"), "SampleSort int32 n=2^26 fused", card)
     by_name = profile(lambda: ss.sort_kv(tk, tv, exchange="fused"), "sort_kv 2^23 records fused",
                       card)
-    g_ms, g_n = traced(by_name, "bitonic_global_stage_kernel")
-    log(f"traced bitonic_global_stage_kernel (rank plane) in sort_kv 2^23 records fused: "
-        f"{g_ms:.3f} ms over {g_n} launches [{card}]")
+    for kname in ("bitonic_global_stage_kernel", "bitonic_tile_merge_kernel"):
+        g_ms, g_n = traced(by_name, kname)
+        log(f"traced {kname} (rank plane) in sort_kv 2^23 records fused: {g_ms:.3f} ms over "
+            f"{g_n} launches [{card}]")
     profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas", card)
 
     print(json.dumps({"kernels": kernels}))

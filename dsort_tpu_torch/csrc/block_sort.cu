@@ -15,12 +15,11 @@
 // consecutive stages, one global-stage launch a group, followed by one
 // tile merge (stages j = T/2..1 of level k inside each tile).
 //
-// Where the tile lives.  The tile sort keeps its tile in registers: each
-// thread holds E consecutive keys, so a stage at distance j < E pairs keys
-// of one thread, E <= j < 32E pairs two lanes of one warp (a shuffle), and
-// only j >= 32E crosses warps, through shared memory.  The merge kernel
-// runs all its stages in shared memory (`tile_stages`), one pair per
-// thread and one barrier per stage.
+// Where the tile lives.  The tile sort and the tile merge keep their tile
+// in registers: each thread holds E consecutive keys, so a stage at
+// distance j < E pairs keys of one thread, E <= j < 32E pairs two lanes of
+// one warp (a shuffle), and only j >= 32E crosses warps, through shared
+// memory (`level_stages`).
 //
 // The rank plane.  Every kernel takes an optional int32 plane `r` laid out
 // like the keys (nullptr: keys alone).  With it, pairs compare
@@ -44,16 +43,19 @@
 
 namespace {
 
-constexpr int kTileThreads = 512;
 constexpr int kStageThreads = 256;
 constexpr int kWarp = 32;
 
-// Keys each thread of bitonic_tile_kernel holds in registers (E); a tile of
-// fewer keys runs on one thread with E = T.  16 beat 8 for every key type
-// and plane on the card.
+// Keys each thread holds in registers (E): 16 in bitonic_tile_kernel, 8 in
+// bitonic_tile_merge_kernel; a tile of fewer keys runs on one thread with
+// E = T.  On the card 16 beat 8 for every key type and plane in the tile
+// sort (78 stages), and 8 beat 16 in the merge (12 stages), where more
+// threads a tile shorten its load-compute-store chain.
 constexpr int kTileKeys = 16;
+constexpr int kMergeKeys = 8;
 // Threads of the largest tile the wrapper admits (8192 int32 keys).
 constexpr int kTileBlock = 8192 / kTileKeys;
+constexpr int kMergeBlock = 8192 / kMergeKeys;
 
 // S_max: the most consecutive stages of one level that a launch of
 // bitonic_global_stage_kernel runs, per key type and plane (2^S keys, and
@@ -65,74 +67,6 @@ template <typename K, bool R>
 constexpr int kStagesMax = R ? 5 : 6;
 
 __host__ __device__ constexpr int log2i(int n) { return n > 1 ? 1 + log2i(n / 2) : 0; }
-
-// Orders (a, ra) and (b, rb) ascending (asc) or descending, in place.
-template <typename K, bool R>
-__device__ __forceinline__ void compare_exchange(K& a, K& b, int32_t& ra,
-                                                 int32_t& rb, bool asc) {
-  if constexpr (!R) {
-    const K lo = a < b ? a : b;
-    const K hi = a < b ? b : a;
-    a = asc ? lo : hi;
-    b = asc ? hi : lo;
-    return;
-  }
-  const bool a_gt = a > b || (a == b && ra > rb);
-  const bool b_gt = b > a || (a == b && rb > ra);
-  if (asc ? a_gt : b_gt) {
-    const K tk = a;
-    a = b;
-    b = tk;
-    const int32_t tr = ra;
-    ra = rb;
-    rb = tr;
-  }
-}
-
-// Stages j = j_top..1 of level k on a shared-memory tile of T keys (and T
-// ranks when R) whose first key sits at in-row offset row_off.
-template <typename K, bool R>
-__device__ __forceinline__ void tile_stages(K* s, int32_t* sr, int T,
-                                            long long row_off, long long k,
-                                            int j_top) {
-  const int half = T >> 1;
-  int32_t dummy_a = 0, dummy_b = 0;
-  for (int j = j_top; j > 0; j >>= 1) {
-    for (int q = threadIdx.x; q < half; q += blockDim.x) {
-      const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-      const bool asc = ((row_off + i) & k) == 0;
-      if constexpr (R)
-        compare_exchange<K, R>(s[i], s[i + j], sr[i], sr[i + j], asc);
-      else
-        compare_exchange<K, R>(s[i], s[i + j], dummy_a, dummy_b, asc);
-    }
-    __syncthreads();
-  }
-}
-
-// Loads tile blockIdx.x (keys, then ranks behind them in shared memory);
-// returns its first flat index.
-template <typename K, bool R>
-__device__ __forceinline__ long long load_tile(K* s, int32_t* sr, const K* x,
-                                               const int32_t* r, int T) {
-  const long long base = static_cast<long long>(blockIdx.x) * T;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    s[t] = x[base + t];
-    if constexpr (R) sr[t] = r[base + t];
-  }
-  __syncthreads();
-  return base;
-}
-
-template <typename K, bool R>
-__device__ __forceinline__ void store_tile(const K* s, const int32_t* sr,
-                                           K* x, int32_t* r, int T,
-                                           long long base) {
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    x[base + t] = s[t];
-    if constexpr (R) r[base + t] = sr[t];
-  }
-}
 
 // Copies E consecutive values from p (global or shared memory) into a
 // thread's registers, 16 bytes at a time where the address allows.
@@ -171,15 +105,19 @@ __device__ __forceinline__ void store_run(V* p, const V (&v)[E]) {
   for (int e = 0; e < E; ++e) p[e] = v[e];
 }
 
-// compare_exchange for a pair in one thread's registers.  With ranks, one
-// comparison decides: swap iff "a > b" equals "ascending"; a full (key,
-// rank) tie then swaps two identical entries, which changes no bit.  (On an
-// H100 this made the rank-plane tile sort ~1.6x faster than
-// compare_exchange's two predicates.)
+// Orders a pair in one thread's registers, (a, ra) and (b, rb), ascending
+// (asc) or descending, in place.  With ranks, one comparison decides: swap
+// iff "a > b" on (key, rank) equals "ascending"; a full (key, rank) tie
+// then swaps two identical entries, which changes no bit.  (On an H100 this
+// made the rank-plane tile sort ~1.6x faster than testing "a > b" and
+// "b > a" apart.)
 template <typename K, bool R>
 __device__ __forceinline__ void order_pair(K& a, K& b, int32_t& ra, int32_t& rb, bool asc) {
   if constexpr (!R) {
-    compare_exchange<K, R>(a, b, ra, rb, asc);
+    const K lo = a < b ? a : b;
+    const K hi = a < b ? b : a;
+    a = asc ? lo : hi;
+    b = asc ? hi : lo;
   } else if (((a > b) | ((a == b) & (ra > rb))) == asc) {
     const K tk = a;
     a = b;
@@ -300,6 +238,24 @@ __device__ __forceinline__ void smem_stage(K (&v)[E], int32_t (&q)[E], K* s, int
   __syncthreads();  // every partner read before the next stage writes
 }
 
+// Stages j = j_top..1 of one level (j_top >= E/2) on a tile held in
+// registers, E consecutive keys (and ranks) a thread, in one direction for
+// the whole thread: j >= 32E through shared memory, E <= j < 32E on warp
+// shuffles (a partial warp shuffles under the mask of its threads), j < E
+// inside the thread.  The one code path of every register-resident level,
+// in the tile sort and in the tile merge.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void level_stages(K (&v)[E], int32_t (&q)[E], K* s, int32_t* sr,
+                                             int j_top, bool desc) {
+  const int t = threadIdx.x;
+  const unsigned mask = blockDim.x >= kWarp ? 0xffffffffu : (1u << blockDim.x) - 1u;
+  int j = j_top;
+  for (; j >= kWarp * E; j >>= 1)
+    smem_stage<K, R, E>(v, q, s, sr, j / E, (t & (j / E)) != 0, desc);
+  for (; j >= E; j >>= 1) shfl_stage<K, R, E>(v, q, j / E, (t & (j / E)) != 0, desc, mask);
+  thread_tail<K, R, E>(v, q, !desc);
+}
+
 // Replaces K1 `_tile_sort_cm_kernel` (block_sort.py:419) at k_start == 2
 // and K1b `_sort_levels_kernel` (block_sort.py:440) at k_start > 2 (the
 // merge entry of block_merge_runs for runs shorter than a tile).
@@ -317,9 +273,7 @@ __device__ __forceinline__ void smem_stage(K (&v)[E], int32_t (&q)[E], K* s, int
 // layout whose accesses meet no bank conflict).  At T = 4096, E = 16: 42
 // stages in-thread, 30 on shuffles, 6 in shared memory, of 78.  Directions
 // come from the in-row index, so the tile's top level takes its direction
-// from the tile's parity inside the row, as K1's block parity does.  The
-// merge kernel still runs every stage in shared memory (`tile_stages`):
-// giving it this register-resident tail is later work.
+// from the tile's parity inside the row, as K1's block parity does.
 template <typename K, bool R, int E>
 __global__ void __launch_bounds__(kTileBlock)
     bitonic_tile_kernel(K* __restrict__ x, int32_t* __restrict__ r, long long row_len,
@@ -327,28 +281,19 @@ __global__ void __launch_bounds__(kTileBlock)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   K* s = reinterpret_cast<K*>(smem_raw);
   int32_t* sr = reinterpret_cast<int32_t*>(s + T);
-  const int t = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * T;
-  const long long row_off = base & (row_len - 1);
+  const long long first = static_cast<long long>(blockIdx.x) * T + threadIdx.x * E;
   // Bits 0..log2(T) of the in-row index of the thread's first key: all that
   // a level k <= T reads of it.
-  const int i0 = static_cast<int>(row_off & T) | (t * E);
+  const int i0 = static_cast<int>(first & (row_len - 1) & (2 * T - 1));
   K v[E];
   int32_t q[E];
-  load_run<K, E>(v, x + base + t * E);
-  if constexpr (R) load_run<int32_t, E>(q, r + base + t * E);
+  load_run<K, E>(v, x + first);
+  if constexpr (R) load_run<int32_t, E>(q, r + first);
   thread_levels<K, R, E>(v, q, i0, k_start);
-  const unsigned mask = blockDim.x >= kWarp ? 0xffffffffu : (1u << blockDim.x) - 1u;
-  for (int k = k_start > 2 * E ? static_cast<int>(k_start) : 2 * E; k <= T; k <<= 1) {
-    const bool desc = (i0 & k) != 0;
-    int j = k >> 1;
-    for (; j >= kWarp * E; j >>= 1)
-      smem_stage<K, R, E>(v, q, s, sr, j / E, (t & (j / E)) != 0, desc);
-    for (; j >= E; j >>= 1) shfl_stage<K, R, E>(v, q, j / E, (t & (j / E)) != 0, desc, mask);
-    thread_tail<K, R, E>(v, q, !desc);
-  }
-  store_run<K, E>(x + base + t * E, v);
-  if constexpr (R) store_run<int32_t, E>(r + base + t * E, q);
+  for (int k = k_start > 2 * E ? static_cast<int>(k_start) : 2 * E; k <= T; k <<= 1)
+    level_stages<K, R, E>(v, q, s, sr, k >> 1, (i0 & k) != 0);
+  store_run<K, E>(x + first, v);
+  if constexpr (R) store_run<int32_t, E>(r + first, q);
 }
 
 // Replaces K2 `_cross_kernel` (block_sort.py:466) and K2c `_orbit_kernel`
@@ -397,27 +342,30 @@ __global__ void __launch_bounds__(kStageThreads)
 
 // Replaces the in-block merge tails of K2a `_span_low_kernel`
 // (block_sort.py:567) and K2b/K3 `_span_tail_kernel` (block_sort.py:493):
-// for a level k > T, every stage with j < T, inside the shared-memory
-// resident tile.
-// Bound: 2 n (itemsize [+ 4]) HBM bytes per launch; log2(T) shared-memory
-// stages.  Design: as bitonic_tile_kernel, with the level's direction
-// constant across the tile (bit k of the in-row index lies above the tile).
-template <typename K, bool R>
-__global__ void bitonic_tile_merge_kernel(K* __restrict__ x,
-                                          int32_t* __restrict__ r,
-                                          long long row_len, int T,
-                                          long long k) {
+// for a level k > T, the stages j = T/2..1 inside every T-key tile.
+// Bound: HBM bytes, 2 n (itemsize [+ 4]) a launch (0.16 ms at 8 x 2^23
+// int32); its n log2(T) / 2 compare-exchanges stay far below it.  Design:
+// K1's last level on K1's layout, with E = kMergeKeys (T/E threads a
+// tile, E consecutive keys and ranks each in registers, 16-byte loads and
+// stores), through the same `level_stages`.  Bit k of the in-row index
+// lies above the tile, so one direction serves the whole tile.  At
+// T = 4096, E = 8: 4 stages through shared memory, 5 on shuffles, 3 in
+// the thread, of 12.
+template <typename K, bool R, int E>
+__global__ void __launch_bounds__(kMergeBlock)
+    bitonic_tile_merge_kernel(K* __restrict__ x, int32_t* __restrict__ r, long long row_len,
+                              int T, long long k) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   K* s = reinterpret_cast<K*>(smem_raw);
   int32_t* sr = reinterpret_cast<int32_t*>(s + T);
-  const long long base = load_tile<K, R>(s, sr, x, r, T);
-  tile_stages<K, R>(s, sr, T, base & (row_len - 1), k, T >> 1);
-  store_tile<K, R>(s, sr, x, r, T, base);
-}
-
-int tile_threads(int T) {
-  const int half = T >> 1;
-  return half < kTileThreads ? half : kTileThreads;
+  const long long first = static_cast<long long>(blockIdx.x) * T + threadIdx.x * E;
+  K v[E];
+  int32_t q[E];
+  load_run<K, E>(v, x + first);
+  if constexpr (R) load_run<int32_t, E>(q, r + first);
+  level_stages<K, R, E>(v, q, s, sr, T >> 1, (first & (row_len - 1) & k) != 0);
+  store_run<K, E>(x + first, v);
+  if constexpr (R) store_run<int32_t, E>(r + first, q);
 }
 
 template <typename K>
@@ -425,35 +373,41 @@ size_t tile_smem(int T, bool ranked) {
   return static_cast<size_t>(T) * (sizeof(K) + (ranked ? sizeof(int32_t) : 0));
 }
 
-template <typename K, bool R, int E>
-void launch_tile_e(K* x, int32_t* r, long long rows, long long row_len, int T,
-                   long long k_start, cudaStream_t st) {
+// One launch, T/E threads a tile: the tile merge of level k > T (Merge), or
+// levels k..T of the tile sort.
+template <typename K, bool R, bool Merge, int E>
+void launch_tile_e(K* x, int32_t* r, long long rows, long long row_len, int T, long long k,
+                   cudaStream_t st) {
   const unsigned int tiles = static_cast<unsigned int>(rows * row_len / T);
-  bitonic_tile_kernel<K, R, E><<<tiles, T / E, tile_smem<K>(T, R), st>>>(x, r, row_len, T,
-                                                                          k_start);
+  const size_t smem = tile_smem<K>(T, R);
+  if constexpr (Merge)
+    bitonic_tile_merge_kernel<K, R, E><<<tiles, T / E, smem, st>>>(x, r, row_len, T, k);
+  else
+    bitonic_tile_kernel<K, R, E><<<tiles, T / E, smem, st>>>(x, r, row_len, T, k);
 }
 
-// E = min(T, kTileKeys).
-template <typename K, bool R>
-void launch_tile_r(K* x, int32_t* r, long long rows, long long row_len, int T,
-                   long long k_start, cudaStream_t st) {
-  switch (T < kTileKeys ? T : kTileKeys) {
-    case 2: return launch_tile_e<K, R, 2>(x, r, rows, row_len, T, k_start, st);
-    case 4: return launch_tile_e<K, R, 4>(x, r, rows, row_len, T, k_start, st);
-    case 8: return launch_tile_e<K, R, 8>(x, r, rows, row_len, T, k_start, st);
-    default: return launch_tile_e<K, R, kTileKeys>(x, r, rows, row_len, T, k_start, st);
+// E = min(T, kMergeKeys or kTileKeys).
+template <typename K, bool R, bool Merge>
+void launch_tile_r(K* x, int32_t* r, long long rows, long long row_len, int T, long long k,
+                   cudaStream_t st) {
+  constexpr int e_max = Merge ? kMergeKeys : kTileKeys;
+  switch (T < e_max ? T : e_max) {
+    case 2: return launch_tile_e<K, R, Merge, 2>(x, r, rows, row_len, T, k, st);
+    case 4: return launch_tile_e<K, R, Merge, 4>(x, r, rows, row_len, T, k, st);
+    case 8: return launch_tile_e<K, R, Merge, 8>(x, r, rows, row_len, T, k, st);
+    default: return launch_tile_e<K, R, Merge, e_max>(x, r, rows, row_len, T, k, st);
   }
 }
 
-template <typename K>
-int launch_tile(void* x, void* r, long long rows, long long row_len, int T,
-                long long k_start, void* stream) {
+template <typename K, bool Merge>
+int launch_tile(void* x, void* r, long long rows, long long row_len, int T, long long k,
+                void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (r != nullptr)
-    launch_tile_r<K, true>(static_cast<K*>(x), static_cast<int32_t*>(r), rows, row_len, T,
-                           k_start, st);
+    launch_tile_r<K, true, Merge>(static_cast<K*>(x), static_cast<int32_t*>(r), rows, row_len,
+                                  T, k, st);
   else
-    launch_tile_r<K, false>(static_cast<K*>(x), nullptr, rows, row_len, T, k_start, st);
+    launch_tile_r<K, false, Merge>(static_cast<K*>(x), nullptr, rows, row_len, T, k, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -497,20 +451,6 @@ int launch_global_stage(void* x, void* r, long long rows, long long row_len, lon
                                                        k, lj_low, stages, st);
 }
 
-template <typename K>
-int launch_tile_merge(void* x, void* r, long long rows, long long row_len,
-                      int T, long long k, void* stream) {
-  const unsigned int tiles = static_cast<unsigned int>(rows * row_len / T);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (r != nullptr)
-    bitonic_tile_merge_kernel<K, true><<<tiles, tile_threads(T), tile_smem<K>(T, true), st>>>(
-        static_cast<K*>(x), static_cast<int32_t*>(r), row_len, T, k);
-  else
-    bitonic_tile_merge_kernel<K, false><<<tiles, tile_threads(T), tile_smem<K>(T, false), st>>>(
-        static_cast<K*>(x), nullptr, row_len, T, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // `r` is the int32 rank plane or nullptr for keys alone.
@@ -518,12 +458,12 @@ extern "C" {
 
 int dsort_bitonic_tile_i32(void* x, void* r, long long rows, long long row_len,
                            int T, long long k_start, void* stream) {
-  return launch_tile<int32_t>(x, r, rows, row_len, T, k_start, stream);
+  return launch_tile<int32_t, false>(x, r, rows, row_len, T, k_start, stream);
 }
 
 int dsort_bitonic_tile_i64(void* x, void* r, long long rows, long long row_len,
                            int T, long long k_start, void* stream) {
-  return launch_tile<int64_t>(x, r, rows, row_len, T, k_start, stream);
+  return launch_tile<int64_t, false>(x, r, rows, row_len, T, k_start, stream);
 }
 
 int dsort_bitonic_global_stage_i32(void* x, void* r, long long rows,
@@ -549,13 +489,13 @@ int dsort_bitonic_global_stages_max(int key_bytes, int ranked) {
 int dsort_bitonic_tile_merge_i32(void* x, void* r, long long rows,
                                  long long row_len, int T, long long k,
                                  void* stream) {
-  return launch_tile_merge<int32_t>(x, r, rows, row_len, T, k, stream);
+  return launch_tile<int32_t, true>(x, r, rows, row_len, T, k, stream);
 }
 
 int dsort_bitonic_tile_merge_i64(void* x, void* r, long long rows,
                                  long long row_len, int T, long long k,
                                  void* stream) {
-  return launch_tile_merge<int64_t>(x, r, rows, row_len, T, k, stream);
+  return launch_tile<int64_t, true>(x, r, rows, row_len, T, k, stream);
 }
 
 }  // extern "C"

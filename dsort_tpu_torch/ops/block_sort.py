@@ -20,8 +20,13 @@ here:
   (`bitonic_global_stage`)     S_max stages j>=T of   keys S stages of a
                                one level per launch)  level touch, a
                                                       thread; one HBM pass
-  bitonic_tile_merge_kernel    in-block tails of      shared memory, one   `tile_merge_plain`
-  (`bitonic_tile_merge`)       K2a, K2b/K3            pair a thread
+  bitonic_tile_merge_kernel    in-block tails of      registers: 8 keys    `tile_merge_plain`
+  (`bitonic_tile_merge`)       K2a, K2b/K3            a thread, one level
+                                                      k > T, one direction
+                                                      a tile; j < 256 in
+                                                      the thread or on
+                                                      shuffles, j >= 256
+                                                      through shared memory
   ===========================  =====================  ===================  ====================
 
 Every function works on a 2-D batch ``(rows, row_len)`` with ``row_len`` a

@@ -174,6 +174,65 @@ def test_block_merge_runs_batched():
     np.testing.assert_array_equal(out, np.sort(runs.reshape(3, -1), axis=1))
 
 
+def _bitonic_tiles(rng, rows, row_len, tile, dtype):
+    """Rows of ``tile``-key bitonic tiles: each an ascending run then a
+    descending one, cut at random, rotated at random (still bitonic)."""
+    x = np.sort(_keys(rng, rows * row_len, dtype).reshape(-1, tile), axis=1)
+    for t, (cut, turn) in enumerate(rng.integers(0, tile, (x.shape[0], 2))):
+        x[t, cut:] = x[t, cut:][::-1].copy()
+        x[t] = np.roll(x[t], turn)
+    return x.reshape(rows, row_len)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("tile", [2, 16, 64, 1024])
+def test_tile_merge_plain_sorts_bitonic_tiles(tile, dtype):
+    """On bitonic tiles the merge of level k sorts each tile in the
+    direction of bit k of its in-row index: at k = row_len every tile
+    ascends and the merge equals ``torch.sort`` of the ``(n/T, T)`` view
+    (the one torch call timed beside the kernel); at k < row_len the
+    tiles of a row alternate in runs of k / T."""
+    rng = np.random.default_rng(tile)
+    rows, row_len = 3, 8 * tile
+    x = _bitonic_tiles(rng, rows, row_len, tile, dtype)
+    starts = np.arange(rows * row_len // tile) * tile % row_len
+    for k in (2 * tile, 4 * tile, row_len):
+        got = tb.tile_merge_plain(torch.from_numpy(x.copy()), tile, k).view(-1, tile)
+        want = np.sort(x.reshape(-1, tile), axis=1)
+        desc = (starts & k) != 0
+        want[desc] = want[desc, ::-1]
+        np.testing.assert_array_equal(got.numpy(), want)
+        if k == row_len:
+            assert not desc.any()
+            assert torch.equal(got, torch.sort(torch.from_numpy(x).view(-1, tile)).values)
+
+
+@pytest.mark.parametrize("tile", [2, 8, 16])
+def test_small_tile_merge_matches_jax_block_merge_runs(tile):
+    """Tiles below a warp (the merge kernel's one-thread and partial-warp
+    launches): level by level over 8 alternating runs, the wrapper on a CPU
+    tensor equals the plain version, and the merged row equals the JAX
+    package's ``block_merge_runs`` (Pallas interpreter) and the port's."""
+    rng = np.random.default_rng(70 + tile)
+    runs = _sorted_runs(rng, 8, 96, np.int32)
+    ref = np.asarray(jb.block_merge_runs(jnp.asarray(runs), block_rows=64, interpret=True))
+    buf = np.full((8, 128), np.iinfo(np.int32).max, np.int32)
+    buf[:, :96] = runs
+    buf[1::2] = buf[1::2, ::-1]
+    x = torch.from_numpy(buf.reshape(1, -1).copy())
+    s_max = tb.STAGES_MAX[(x.dtype, False)]
+    k = 2 * 128  # the merge levels above the run length
+    while k <= x.shape[1]:
+        for j, stages in tb._cross_groups(k, tile, s_max):
+            tb.global_stage_plain(x, k, j, None, stages)
+        want = tb.tile_merge_plain(x.clone(), tile, k)
+        assert torch.equal(tb.bitonic_tile_merge(x, tile, k), want), k
+        k *= 2
+    np.testing.assert_array_equal(_bits(x.numpy()[0, :768]), _bits(ref))
+    out = tb.block_merge_runs(torch.from_numpy(runs), tile=tile).numpy()
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+
+
 def test_wrappers_take_plain_version_on_cpu_and_count_nothing():
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.integers(-(2**31), 2**31, (2, 4096)).astype(np.int32))

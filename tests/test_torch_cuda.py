@@ -110,6 +110,32 @@ def test_kernels_match_plain_versions(cuda, dtype, ranked, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ranked,tile", TILE_SWEEP)
+def test_tile_merge_matches_plain_version(cuda, dtype, ranked, tile):
+    """The tile merge bit-identical to its plain version at every tile the
+    wrapper admits, on rows of 8 tiles at k in {2T, 4T, 8T}: k < row_len
+    puts tiles of both directions in a row.  Random keys, ties that the
+    rank plane decides, full (key, rank) ties and extreme keys; one launch
+    counted per call."""
+    rng = np.random.default_rng(12)
+    plane = tb.RANK if ranked else ""
+    for k in (2 * tile, 4 * tile, 8 * tile):
+        for keys, ranks in _tile_inputs(rng, (3, 8 * tile), dtype, ranked):
+            x = torch.from_numpy(keys).to(cuda)
+            r = torch.from_numpy(ranks).to(cuda) if ranked else None
+            px, pr = x.clone(), r.clone() if ranked else None
+            tb.reset_launch_counts()
+            tb.bitonic_tile_merge(x, tile, k, r)
+            assert tb.launch_counts()["bitonic_tile_merge_kernel" + plane] == 1
+            assert sum(tb.launch_counts().values()) == 1
+            tb.tile_merge_plain(px, tile, k, pr)
+            torch.cuda.synchronize()
+            assert torch.equal(x, px), (tile, k)
+            if ranked:
+                assert torch.equal(r, pr), (tile, k)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ranked", [False, True])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
 def test_global_stage_groups_match_plain_version(cuda, dtype, ranked):
