@@ -17,7 +17,9 @@ Phases (any failure raises, so the exit code is non-zero):
    the tile kernel at k_start in {2, 4, T/2, T}, the merge at k in {2T, 4T,
    8T}, with full (key, rank) ties and extreme keys; the ring exchange
    kernel on the plan of a 2^26 int32 sort (keys) and of a 2^23-record
-   TeraSort sort (kv); the payload gather with 92-byte rows;
+   TeraSort sort (kv); the payload gather with 92-byte rows; S1 at every
+   ``tile_rows`` the wrapper admits (1..2048 int32, 1..1024 int64: 1 to 8
+   CTAs a tile);
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
@@ -44,9 +46,12 @@ Phases (any failure raises, so the exit code is non-zero):
    sorts under each exchange and under ``pallas`` against ``auto``;
    ``pallas_sort`` / ``pallas_sort_kv`` against ``torch.sort``; records/s
    of ``sort_kv``; the tile merge also at the post-exchange shape (8 x
-   2^24 int32); device traces, with the traced sums of the global-stage
-   kernel and of the tile merge in the 2^26 sort, in ``block_sort`` of 2^26
-   and in the 2^23-record ``fused`` sort.
+   2^24 int32); S1 also at 8 x 2^21 int64 and at phase 5's padded shape
+   in the ``pallas`` sort of 2^26; device traces,
+   with the traced sums of the global-stage kernel and of the tile merge in
+   the 2^26 sort, in ``block_sort`` of 2^26 and in the 2^23-record
+   ``fused`` sort, and of S1 in the ``pallas`` sort of 2^26 and in ``cli
+   run --kernel pallas``.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -208,7 +213,7 @@ class Journal:
 def profile(fn, label: str, card: str) -> dict[str, list]:
     """One traced run of ``fn``: device time by kernel or copy, and the
     device's busy share of the wall time (torch.profiler over CUPTI);
-    returns ``{name: [ms, count]}``."""
+    returns ``{name: [ms, count, [ms of each launch]]}``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -221,14 +226,15 @@ def profile(fn, label: str, card: str) -> dict[str, list]:
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us() / 1e3
+            acc = by_name.setdefault(e.name, [0.0, 0, []])
+            acc[2].append(e.time_range.elapsed_us() / 1e3)
+            acc[0] += acc[2][-1]
             acc[1] += 1
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    busy = sum(ms for ms, _ in by_name.values())
+    busy = sum(v[0] for v in by_name.values())
     log(f"trace {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}% of wall) [{card}]")
-    for name, (ms, count) in rows[:10]:
+    for name, (ms, count, _) in rows[:10]:
         log(f"  device {ms:9.3f} ms  x{count:<4d} {name[:90]}")
     return by_name
 
@@ -236,7 +242,12 @@ def profile(fn, label: str, card: str) -> dict[str, list]:
 def traced(by_name: dict[str, list], kernel: str) -> tuple[float, int]:
     """Summed device ms and launches of every instantiation of ``kernel``."""
     hits = [v for name, v in by_name.items() if kernel + "<" in name]
-    return sum(ms for ms, _ in hits), sum(c for _, c in hits)
+    return sum(v[0] for v in hits), sum(v[1] for v in hits)
+
+
+def traced_launches(by_name: dict[str, list], kernel: str) -> list[float]:
+    """Device ms of each launch of ``kernel``, every instantiation."""
+    return [ms for name, v in by_name.items() if kernel + "<" in name for ms in v[2]]
 
 
 class StageTally:
@@ -446,6 +457,29 @@ def main() -> int:
           "k_start in {2, 4, T/2, T}")
     sweep("bitonic_tile_merge_kernel", tb.bitonic_tile_merge, tb.tile_merge_plain,
           lambda t: (2 * t, 4 * t, 8 * t), lambda t: 8 * t, "k in {2T, 4T, 8T = row_len}")
+    # S1 at every tile_rows the wrapper admits (T = 128 keys up to 8 CTAs a
+    # tile), a few tiles a call, on the tile sweep's keys: random, % 7 ties
+    # and extreme keys (its rank planes unused).
+    for dtype, top in ((np.int32, 2048), (np.int64, 1024)):
+        cases, took, tile_rows = 0, {}, 1
+        while tile_rows <= top:
+            tile = tile_rows * ps.LANES
+            inputs = tile_inputs(wrng, (3 if tile_rows <= 256 else 2, tile), dtype, True)
+            for label, keys, _ in inputs[:2] + inputs[3:]:  # [2] repeats [1]'s keys
+                x = torch.from_numpy(keys).to(dev)
+                px = x.clone()
+                ps.tile_sort(x, tile_rows)
+                ps.tile_sort_plain(px, tile_rows)
+                torch.cuda.synchronize()
+                if not torch.equal(x, px):
+                    raise AssertionError(f"tile_sort_kernel {np.dtype(dtype).name} tile_rows="
+                                         f"{tile_rows} {label}: disagrees with its plain version")
+                cases += 1
+            took[tile_rows] = ps.tile_sort_cluster_size(tile_rows, x.dtype)
+            tile_rows *= 2
+        log(f"check tile_sort_kernel sweep {np.dtype(dtype).name}: {cases} cases, tile_rows="
+            f"1..{top}, CTAs a tile by tile_rows {took}, random / ties / extreme keys: "
+            "bit-identical=True")
 
     mesh = VirtualMesh(P)
     x32 = random_keys(rng, n32, np.int32)
@@ -488,7 +522,7 @@ def main() -> int:
     for dtype, (rows, row_len) in shapes.items():
         x = torch.from_numpy(random_keys(srng, (rows, row_len), dtype)).to(dev)
         hold("tile_sort_kernel", f"{np.dtype(dtype).name} {rows}x{row_len} tile_rows={TR} "
-             f"({ps.cluster_size(TR, x.dtype)} CTA per tile)",
+             f"({ps.tile_sort_cluster_size(TR, x.dtype)} CTAs a tile)",
              lambda: (ps.tile_sort(x.clone(), TR),), lambda: (ps.tile_sort_plain(x.clone(), TR),))
         del x
     for dtype in (np.int32, np.int64):  # the padded shape of 2^23 records, many ties
@@ -930,11 +964,26 @@ def main() -> int:
           2 * n32, "int32 n=2^26 shift=0 bits=8, library torch.bincount of the digits")
     x64t = torch.from_numpy(random_keys(srng, shapes[np.int64], np.int64)).to(dev)
     c64_ms = cuda_ms(lambda: ps.tile_sort(x64t, TR))
-    c64_bound, _ = bound_ms(2 * n64 * 8, n64 * stages_s)
-    log(f"time tile_sort_kernel int64 {shapes[np.int64]} (2-CTA clusters): {c64_ms:.4f} ms, "
-        f"bound {c64_bound:.4f} ms, torch.sort of the tile rows "
-        f"{cuda_ms(lambda: torch.sort(x64t.view(-1, tile), dim=-1)):.4f} ms [{card}]")
-    del x64t, hist_in, xh
+    c64_lib = cuda_ms(lambda: torch.sort(x64t.view(-1, tile), dim=-1))
+    c64_bound, c64_by = bound_ms(2 * n64 * 8, n64 * stages_s)
+    log(f"time tile_sort_kernel int64 {shapes[np.int64]} "
+        f"({ps.tile_sort_cluster_size(TR, x64t.dtype)} CTAs a tile): {c64_ms:.4f} ms, plain "
+        f"{cuda_ms(lambda: ps.tile_sort_plain(x64t, TR), reps=3, warmup=1):.4f} ms, library "
+        f"(torch.sort of the tile rows) {c64_lib:.4f} ms, bound {c64_bound:.4f} ms ({c64_by}) "
+        f"[{card}]")
+    # Phase 5's launch in the pallas sort of 2^26 int32: P rows of P * cap
+    # received keys, padded with the sentinel to a power-of-two count of
+    # whole tiles.
+    x5 = ps._padded_tiles(torch.from_numpy(random_keys(srng, (P, P * cap), np.int32)).to(dev),
+                          tile)
+    n5 = x5.numel()
+    p5_lib = cuda_ms(lambda: torch.sort(x5.view(-1, tile), dim=-1))
+    p5_bound, p5_by = bound_ms(2 * n5 * 4, n5 * stages_s)
+    log(f"time tile_sort_kernel int32 {tuple(x5.shape)} (phase 5 of the pallas sort of 2^26, "
+        f"{P}x{P * cap} keys padded): {cuda_ms(lambda: ps.tile_sort(x5, TR)):.4f} ms, library "
+        f"(torch.sort of the tile rows) {p5_lib:.4f} ms, bound {p5_bound:.4f} ms ({p5_by}) "
+        f"[{card}]")
+    del x5, x64t, hist_in, xh
 
     xf = torch.from_numpy(x32).to(dev)
     p_ms = cuda_ms(lambda: ps.pallas_sort(xf), reps=3, warmup=1)
@@ -1010,7 +1059,17 @@ def main() -> int:
         g_ms, g_n = traced(by_name, kname)
         log(f"traced {kname} (rank plane) in sort_kv 2^23 records fused: {g_ms:.3f} ms over "
             f"{g_n} launches [{card}]")
-    profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas", card)
+    by_name = profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas",
+                      card)
+    g_ms, g_n = traced(by_name, "tile_sort_kernel")
+    log(f"traced tile_sort_kernel in SampleSort int32 n=2^26 local_kernel=pallas alltoall: "
+        f"{g_ms:.3f} ms over {g_n} launches (each: "
+        f"{[round(ms, 3) for ms in traced_launches(by_name, 'tile_sort_kernel')]}) [{card}]")
+    by_name = profile(lambda: cli.main(["run", str(src), "-o", str(dst), "--kernel", "pallas"]),
+                      "cli run --kernel pallas 10^6 lines", card)
+    g_ms, g_n = traced(by_name, "tile_sort_kernel")
+    log(f"traced tile_sort_kernel in cli run --kernel pallas 10^6 lines: {g_ms:.3f} ms over "
+        f"{g_n} launches [{card}]")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,13 +17,11 @@
 // decides the swap from (first, second) alone, so equal keys can never
 // duplicate or lose an index (pallas_sort.py:108-114).
 //
-// A tile that does not fit one CTA's shared memory (227 KB) is held by a
-// thread-block cluster of C CTAs (a power of two up to 8), each holding a
-// contiguous 1/C of the tile.  A stage whose distance j is at least the
-// per-CTA length L = T / C pairs CTA r with CTA r ^ (j / L) at the same local
-// offset: the lower CTA of the two orders both members through distributed
-// shared memory, between two cluster barriers.  At C = 2 that is one stage
-// of the whole network (k = T, j = T / 2); every other stage is local.
+// A tile is held by a thread-block cluster of C CTAs (a power of two up to
+// 8; C = 1 is one CTA), each holding a contiguous L = T / C of it.  A stage
+// whose distance j is at least L pairs CTA r with CTA r ^ (j / L) at the
+// same local offset, through distributed shared memory between two cluster
+// barriers; every other stage stays inside one CTA.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns the launch's cudaError_t (0 on success).
@@ -31,6 +29,8 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bitonic_regs.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -42,26 +42,32 @@ constexpr int kMaxCluster = 8;    // portable cluster size
 constexpr int kHistThreads = 256;
 constexpr int kSharedHistBits = 13;  // 32 KB of int32 buckets in shared memory
 
-// Orders (a, va) and (b, vb) ascending (asc) or descending, in place.
-template <typename K, bool V>
-__device__ __forceinline__ void order_pair(K* a, K* b, int32_t* va, int32_t* vb,
-                                           bool asc) {
+// S1's keys a thread (E): a CTA holds its share L of the tile in L / E
+// threads, E = 16, or 32 at the one share of 32,768 keys (int32, the
+// largest tile).  The share is ops/pallas_sort.py's tile_sort_cluster_size:
+// 4,096 keys where the tile has more, up to 8 CTAs (8 CTAs of 256 threads
+// at T = 32768).  On an H100 that form beat 1, 2 and 4 CTAs a tile for both
+// key types (PERF.md §6; dsort_tpu_torch/tools/s1_forms.py).  Every
+// instantiation keeps __launch_bounds__(1024): 64 registers a thread, so
+// 1024 threads stay resident an SM in every form, and int64 and E = 32
+// spill a few words.  Bounds matched to a form's threads remove the spill
+// (95-104 registers) but halve the resident threads, and made int64 slower
+// (PERF.md §6).
+constexpr int kSortKeys = 16;
+
+// Orders (a, va) and (b, vb) by (key, index) ascending (asc) or descending,
+// in place (S2).
+template <typename K>
+__device__ __forceinline__ void order_entries(K* a, K* b, int32_t* va, int32_t* vb, bool asc) {
   const K x = *a, y = *b;
-  if constexpr (!V) {
-    const K lo = x < y ? x : y;
-    const K hi = x < y ? y : x;
-    *a = asc ? lo : hi;
-    *b = asc ? hi : lo;
-  } else {
-    const int32_t u = *va, w = *vb;
-    const bool first_gt = x > y || (x == y && u > w);
-    const bool second_gt = y > x || (x == y && w > u);
-    if (asc ? first_gt : second_gt) {
-      *a = y;
-      *b = x;
-      *va = w;
-      *vb = u;
-    }
+  const int32_t u = *va, w = *vb;
+  const bool first_gt = x > y || (x == y && u > w);
+  const bool second_gt = y > x || (x == y && w > u);
+  if (asc ? first_gt : second_gt) {
+    *a = y;
+    *b = x;
+    *va = w;
+    *vb = u;
   }
 }
 
@@ -80,9 +86,11 @@ __device__ __forceinline__ void copy_run(T* dst, const T* src, int n) {
   }
 }
 
-// The whole network on one tile, in place.  CTA `rank` of a cluster of C
-// holds keys [rank * L, (rank + 1) * L) of tile blockIdx.x / C.
-template <typename K, bool V>
+// S2's whole network on one tile of (key, index) pairs, in place, out of
+// shared memory.  CTA `rank` of a cluster of C holds keys
+// [rank * L, (rank + 1) * L) of tile blockIdx.x / C; the lower CTA of a pair
+// of CTAs orders both members of a stage across them.
+template <typename K>
 __device__ __forceinline__ void tile_network(K* __restrict__ x, int32_t* __restrict__ v,
                                              int T, int C) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -93,20 +101,15 @@ __device__ __forceinline__ void tile_network(K* __restrict__ x, int32_t* __restr
   const long long base =
       static_cast<long long>(blockIdx.x / C) * T + static_cast<long long>(rank) * L;
   copy_run(s, x + base, L);
-  if constexpr (V) copy_run(sv, v + base, L);
+  copy_run(sv, v + base, L);
   __syncthreads();
   const int g0 = rank * L;  // in-tile index of s[0]
-  int32_t dummy_a = 0, dummy_b = 0;
   for (int k = 2; k <= T; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       if (j < L) {
         for (int q = threadIdx.x; q < (L >> 1); q += blockDim.x) {
           const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-          const bool asc = ((g0 + i) & k) == 0;
-          if constexpr (V)
-            order_pair<K, V>(s + i, s + i + j, sv + i, sv + i + j, asc);
-          else
-            order_pair<K, V>(s + i, s + i + j, &dummy_a, &dummy_b, asc);
+          order_entries<K>(s + i, s + i + j, sv + i, sv + i + j, ((g0 + i) & k) == 0);
         }
         __syncthreads();
         continue;
@@ -118,38 +121,85 @@ __device__ __forceinline__ void tile_network(K* __restrict__ x, int32_t* __restr
         const int partner = rank ^ (j / L);
         K* ps = cluster.map_shared_rank(s, partner);
         int32_t* psv = cluster.map_shared_rank(sv, partner);
-        for (int t = threadIdx.x; t < L; t += blockDim.x) {
-          const bool asc = ((g0 + t) & k) == 0;
-          if constexpr (V)
-            order_pair<K, V>(s + t, ps + t, sv + t, psv + t, asc);
-          else
-            order_pair<K, V>(s + t, ps + t, &dummy_a, &dummy_b, asc);
-        }
+        for (int t = threadIdx.x; t < L; t += blockDim.x)
+          order_entries<K>(s + t, ps + t, sv + t, psv + t, ((g0 + t) & k) == 0);
       }
       cluster.sync();
     }
   }
   copy_run(x + base, s, L);
-  if constexpr (V) copy_run(v + base, sv, L);
+  copy_run(v + base, sv, L);
 }
 
-// S1.  Bound: each key is read and written once (2 T sizeof(K) HBM bytes a
-// tile); the log2(T)(log2(T)+1)/2 stages (120 at T = 32768) run out of
-// shared memory, one barrier each, so the limit on this card is
+// A stage at distance j = d L, d >= 1, across the CTAs of a cluster: every
+// thread publishes its run in its own CTA's shared memory, a cluster
+// barrier, reads the run of the same thread in CTA rank ^ d and keeps its
+// side; the second barrier holds every CTA's buffer until its partner has
+// read it.  Both CTAs of a pair work, and none writes another's memory.
+template <typename K, int E>
+__device__ __forceinline__ void cluster_stage(K (&v)[E], K* s, int rank, int d, bool desc) {
+  constexpr int G = 4;  // keys per step, as smem_stage
+  cg::cluster_group cluster = cg::this_cluster();
+  put_chunks<K, E>(s, v);
+  cluster.sync();
+  const K* ps = cluster.map_shared_rank(s, rank ^ d);
+  const bool up = (rank & d) != 0;
+  int32_t no_rank = 0;
+#pragma unroll
+  for (int g = 0; g < E / G; ++g) {
+    K p[G];
+    get_chunks<K, G>(p, ps, threadIdx.x, g);
+#pragma unroll
+    for (int u = 0; u < G; ++u) order_with<K, false>(v[g * G + u], no_rank, p[u], 0, up, desc);
+  }
+  cluster.sync();
+}
+
+// S1.  Bound: each key is read and written once, 2 T sizeof(K) HBM bytes a
+// tile (0.16 ms at 8 x 2^23 int32 on H100 HBM3); against that stand
+// T log2(T)(log2(T)+1)/4 compare-exchanges (120 stages at T = 32768), so
+// the kernel is bound by instructions, not HBM.  Design: K1's, on a tile
+// held by a cluster.  Each CTA holds its L = T / C keys E consecutive keys
+// a thread in registers (L / E threads), loaded and stored 16 bytes at a
+// time; of a level's stages j, those with j < E run inside the thread,
+// E <= j < 32E on warp shuffles, 32E <= j < L through shared memory (the
+// code of bitonic_regs.cuh, shared with K1 and the tile merge), and only
+// j >= L across CTAs (`cluster_stage`).  At T = 32768, E = 16, C = 8: 54
+// stages in the thread, 45 on shuffles, 15 in shared memory and 6 across
+// CTAs, of 120.  Directions come from the in-tile index of the
+// thread's first key, as K1's do from the in-row index; at k = T every tile
+// ascends.
+template <typename K, int E>
+__global__ void __launch_bounds__(kTileThreads) tile_sort_kernel(K* __restrict__ x, int T, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  K* s = reinterpret_cast<K*>(smem_raw);
+  const int L = T / C;
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const int i0 = rank * L + static_cast<int>(threadIdx.x) * E;
+  K* run = x + static_cast<long long>(blockIdx.x / C) * T + i0;
+  K v[E];
+  int32_t q[E];  // no rank plane: the stage helpers take one and leave it be
+  load_run<K, E>(v, run);
+  thread_levels<K, false, E>(v, q, i0, 2);
+  for (int k = 2 * E; k <= T; k <<= 1) {
+    const bool desc = (i0 & k) != 0;
+    int j = k >> 1;
+    for (; j >= L; j >>= 1) cluster_stage<K, E>(v, s, rank, j / L, desc);
+    level_stages<K, false, E>(v, q, s, nullptr, j, desc);
+  }
+  store_run<K, E>(run, v);
+}
+
+// S2.  Bound: each key and index is read and written once (2 T (sizeof(K) +
+// 4) HBM bytes a tile); the log2(T)(log2(T)+1)/2 stages (120 at T = 32768)
+// run out of shared memory, one barrier each, so the limit on this card is
 // shared-memory bandwidth and the barriers, not HBM.  Design: one tile per
-// CTA (or per cluster), 1024 threads owning L / 2048 pairs each per stage;
-// the network is the reference's, unchanged.
-template <typename K>
-__global__ void __launch_bounds__(kTileThreads) tile_sort_kernel(K* x, int T, int C) {
-  tile_network<K, false>(x, nullptr, T, C);
-}
-
-// S2.  Bound and design as S1, with the int32 index plane beside the keys
-// (T (sizeof(K) + 4) bytes a tile: every tile at T = 32768 needs a cluster).
+// cluster (every tile at T = 32768 needs two CTAs), 1024 threads owning
+// L / 2048 pairs each per stage; the network is the reference's, unchanged.
 template <typename K>
 __global__ void __launch_bounds__(kTileThreads) tile_sort_kv_kernel(K* x, int32_t* v, int T,
                                                                     int C) {
-  tile_network<K, true>(x, v, T, C);
+  tile_network<K>(x, v, T, C);
 }
 
 // The radix digit (x >> shift) & (2^bits - 1): an arithmetic shift for
@@ -202,23 +252,26 @@ __global__ void __launch_bounds__(kHistThreads)
   }
 }
 
-// Launches `kernel` over `tiles` tiles, C CTAs per tile as one cluster.
+// True for a tile of T keys split over C CTAs: T and C powers of two, C at
+// most kMaxCluster and at most T.
+bool tile_shape_ok(int T, int C) {
+  return T >= 2 && (T & (T - 1)) == 0 && C >= 1 && C <= kMaxCluster && (C & (C - 1)) == 0 &&
+         T % C == 0;
+}
+
+// Launches `kernel` over `tiles` tiles, C CTAs per tile as one cluster,
+// `threads` threads and `smem` bytes of dynamic shared memory a CTA.
 template <typename... Params, typename... Args>
-int launch_tiles(void (*kernel)(Params...), long long tiles, int T, int C, int key_bytes,
+int launch_tiles(void (*kernel)(Params...), long long tiles, int C, int threads, long long smem,
                  void* stream, Args... args) {
-  if (T < 2 || (T & (T - 1)) != 0 || C < 1 || C > kMaxCluster || (C & (C - 1)) != 0 ||
-      T % C != 0 || T / C < 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(T / C) * key_bytes;
   if (smem > kMaxSmem || tiles * C > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (tiles == 0) return 0;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int half = T / C / 2;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(tiles * C));
-  cfg.blockDim = dim3(half < kTileThreads ? half : kTileThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
@@ -231,6 +284,34 @@ int launch_tiles(void (*kernel)(Params...), long long tiles, int T, int C, int k
   e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// S1 on shares of L = T / C keys, L / E threads a CTA: E = kSortKeys up to
+// 16,384 keys a share, 32 (int32 only) at 32,768; refuses anything else.
+template <typename K>
+int launch_tile_sort(void* x, long long tiles, int T, int C, void* stream) {
+  if (!tile_shape_ok(T, C) || T / C < kSortKeys) return static_cast<int>(cudaErrorInvalidValue);
+  const int L = T / C;
+  const long long smem = static_cast<long long>(L) * sizeof(K);
+  K* xk = static_cast<K*>(x);
+  if (L <= kSortKeys * kTileThreads)
+    return launch_tiles(tile_sort_kernel<K, kSortKeys>, tiles, C, L / kSortKeys, smem, stream, xk,
+                        T, C);
+  if constexpr (sizeof(K) == 4)
+    if (L == 2 * kSortKeys * kTileThreads)
+      return launch_tiles(tile_sort_kernel<K, 2 * kSortKeys>, tiles, C, kTileThreads, smem, stream,
+                          xk, T, C);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// S2: L / 2 threads a CTA, at most 1024; a CTA share of at least 64 keys.
+template <typename K>
+int launch_tile_sort_kv(void* x, void* v, long long tiles, int T, int C, void* stream) {
+  if (!tile_shape_ok(T, C) || T / C < 64) return static_cast<int>(cudaErrorInvalidValue);
+  const int L = T / C;
+  return launch_tiles(tile_sort_kv_kernel<K>, tiles, C, L / 2 < kTileThreads ? L / 2 : kTileThreads,
+                      static_cast<long long>(L) * (sizeof(K) + 4), stream, static_cast<K*>(x),
+                      static_cast<int32_t*>(v), T, C);
 }
 
 template <typename K>
@@ -257,23 +338,19 @@ int launch_histogram(const void* x, long long n, int shift, int bits, void* out,
 extern "C" {
 
 int dsort_tile_sort_i32(void* x, long long tiles, int T, int C, void* stream) {
-  return launch_tiles(tile_sort_kernel<int32_t>, tiles, T, C, 4, stream,
-                      static_cast<int32_t*>(x), T, C);
+  return launch_tile_sort<int32_t>(x, tiles, T, C, stream);
 }
 
 int dsort_tile_sort_i64(void* x, long long tiles, int T, int C, void* stream) {
-  return launch_tiles(tile_sort_kernel<int64_t>, tiles, T, C, 8, stream,
-                      static_cast<int64_t*>(x), T, C);
+  return launch_tile_sort<int64_t>(x, tiles, T, C, stream);
 }
 
 int dsort_tile_sort_kv_i32(void* x, void* v, long long tiles, int T, int C, void* stream) {
-  return launch_tiles(tile_sort_kv_kernel<int32_t>, tiles, T, C, 8, stream,
-                      static_cast<int32_t*>(x), static_cast<int32_t*>(v), T, C);
+  return launch_tile_sort_kv<int32_t>(x, v, tiles, T, C, stream);
 }
 
 int dsort_tile_sort_kv_i64(void* x, void* v, long long tiles, int T, int C, void* stream) {
-  return launch_tiles(tile_sort_kv_kernel<int64_t>, tiles, T, C, 12, stream,
-                      static_cast<int64_t*>(x), static_cast<int32_t*>(v), T, C);
+  return launch_tile_sort_kv<int64_t>(x, v, tiles, T, C, stream);
 }
 
 // Adds the digit counts of n keys to `out` (2^bits int32, zeroed by the caller).

@@ -309,8 +309,8 @@ def test_seven_shards_on_cuda(cuda):
                                              (np.int64, 512)])
 def test_tile_sorts_match_plain_versions(cuda, dtype, tile_rows):
     """S1 / S2 bit-identical to their plain versions, through one CTA per
-    tile and through the 2- and 4-CTA cluster routes (int64 and key+index
-    tiles at 32,768 keys and above)."""
+    tile and through the cluster routes (S1: 8 CTAs at 32,768 and 65,536
+    keys; S2: 2 and 4)."""
     from dsort_tpu_torch.ops import pallas_sort as ps
 
     rng = np.random.default_rng(13)
@@ -328,6 +328,29 @@ def test_tile_sorts_match_plain_versions(cuda, dtype, tile_rows):
     assert ps.launch_counts() == {
         "tile_sort_kernel": 1, "tile_sort_kv_kernel": 1, "radix_histogram_kernel": 0,
     }
+
+
+S1_SWEEP = [(dtype, 1 << e) for dtype, top in ((np.int32, 11), (np.int64, 10))
+            for e in range(top + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile_rows", S1_SWEEP)
+def test_tile_sort_sweep_matches_plain_version(cuda, dtype, tile_rows):
+    """S1 bit-identical to its plain version at every tile_rows the wrapper
+    admits (T = 128 keys up to 1, 2, 4 and 8 CTAs a tile), on random keys,
+    % 7 ties and extreme keys; one launch counted per call."""
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    rng = np.random.default_rng(16)
+    tile = tile_rows * ps.LANES
+    inputs = _tile_inputs(rng, (3 if tile_rows <= 256 else 2, tile), dtype, True)
+    for keys, _ in inputs[:2] + inputs[3:]:  # [2] repeats [1]'s keys
+        x = torch.from_numpy(keys).to(cuda)
+        ps.reset_launch_counts()
+        got = ps.tile_sort(x.clone(), tile_rows)
+        assert torch.equal(got, ps.tile_sort_plain(x.clone(), tile_rows))
+        assert ps.launch_counts()["tile_sort_kernel"] == 1
 
 
 @pytest.mark.cuda

@@ -108,6 +108,40 @@ def test_radix_histogram_pad_case_matches_jax():
     assert got[0] == 77 and got[1:].sum() == 0
 
 
+def _tile_keys(rng, kind, shape, dtype):
+    """Random keys over the whole range, or heavy ties (7 distinct values)."""
+    x = _keys(rng, shape, dtype)
+    return x if kind == "random" else x % 7
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("tile_rows", [1, 2])
+def test_tile_sort_matches_jax_tile_kernel(tile_rows, kind):
+    """S1's wrapper on CPU tensors (its plain version) against the JAX
+    package's `_tile_sort` (the Pallas tile kernel, interpreted), int32,
+    three tiles."""
+    rng = np.random.default_rng(10 * tile_rows + len(kind))
+    x = _tile_keys(rng, kind, 3 * tile_rows * ps.LANES, np.int32)
+    want = np.asarray(
+        jps._tile_sort(jnp.asarray(x.reshape(-1, ps.LANES)), rows=tile_rows, interpret=True)
+    ).reshape(-1)
+    got = ps.tile_sort(_t(x.copy()), tile_rows).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.sort(x.reshape(3, -1), axis=1).reshape(-1))
+    assert not any(ps.launch_counts().values())
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("tile_rows", [1, 2, 8])
+def test_tile_sort_int64_sorts_each_tile(tile_rows, kind):
+    rng = np.random.default_rng(20 * tile_rows + len(kind))
+    x = _tile_keys(rng, kind, (2, 3 * tile_rows * ps.LANES), np.int64)
+    x[0, :3] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1]
+    got = ps.tile_sort(_t(x.copy()), tile_rows).numpy()
+    tile = tile_rows * ps.LANES
+    np.testing.assert_array_equal(got, np.sort(x.reshape(-1, tile), axis=1).reshape(x.shape))
+
+
 # -- larger sizes, held against numpy -----------------------------------------
 
 
@@ -205,6 +239,30 @@ def test_cluster_route_sizes():
     assert ps.cluster_size(256, torch.int64, kv=True) == 2
     assert ps.cluster_size(2, torch.int64, kv=True) == 1
     assert ps.cluster_size(512, torch.int64) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_tile_sort_cluster_sizes(dtype):
+    """S1's own rule: CTA shares of at most 4,096 keys (8 CTAs at the
+    default 32,768-key tile, both key types), never fewer CTAs than shared
+    memory needs (S2's `cluster_size`), at most 8, and a share the kernel
+    takes (16 keys a thread up to 16,384 a share, 32 at 32,768, int32
+    only)."""
+    assert ps.tile_sort_cluster_size(32, dtype) == 1
+    assert ps.tile_sort_cluster_size(64, dtype) == 2
+    assert ps.tile_sort_cluster_size(128, dtype) == 4
+    assert ps.tile_sort_cluster_size(256, dtype) == 8
+    top = 2048 if dtype == torch.int32 else 1024
+    assert ps.tile_sort_cluster_size(top, dtype) == 8
+    tile_rows = 1
+    while tile_rows <= top:
+        c = ps.tile_sort_cluster_size(tile_rows, dtype)
+        share = tile_rows * ps.LANES // c
+        assert c & (c - 1) == 0 and ps.cluster_size(tile_rows, dtype) <= c <= 8
+        assert share * dtype.itemsize <= ps._SMEM_BYTES
+        assert share <= 4096 or c == 8
+        assert share <= 16384 or (share == 32768 and dtype == torch.int32)
+        tile_rows *= 2
 
 
 # -- the bitonic module against JAX's -----------------------------------------
