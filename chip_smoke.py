@@ -17,9 +17,13 @@ Phases (any failure raises, so the exit code is non-zero):
    the tile kernel at k_start in {2, 4, T/2, T}, the merge at k in {2T, 4T,
    8T}, with full (key, rank) ties and extreme keys; the ring exchange
    kernel on the plan of a 2^26 int32 sort (keys) and of a 2^23-record
-   TeraSort sort (kv); the payload gather with 92-byte rows; S1 at every
-   ``tile_rows`` the wrapper admits (1..2048 int32, 1..1024 int64: 1 to 8
-   CTAs a tile);
+   TeraSort sort (kv); the payload gather with 92-byte rows, and swept over
+   rows of 1, 13, 16, 92, 100 and 256 bytes, a ``total`` that is not a
+   multiple of 32, tags read from wider rows and tags out of range; S1 at
+   every ``tile_rows`` the wrapper admits (1..2048 int32, 1..1024 int64: 1
+   to 8 CTAs a tile); S2 at every ``tile_rows`` it admits (1..1024, both key
+   types, 1 to 8 CTAs a tile) on random, % 7 and extreme keys, each with the
+   index as an arange, a permutation and with repeated (key, index) pairs;
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
@@ -41,7 +45,8 @@ Phases (any failure raises, so the exit code is non-zero):
    ``pallas_sort_kv`` on 2^23 TeraSort and 2^22 zipf records (stable);
    ``cli run --kernel pallas``;
 5. timings at the main path's shapes: each kernel, its plain version and
-   the nearest torch call (``library_ms``), the bound; the global-stage
+   the nearest torch call (``library_ms``), the bound; a contiguous copy
+   of the gather's bytes beside the gather; the global-stage
    kernel's pass at every S; the host-to-host
    sorts under each exchange and under ``pallas`` against ``auto``;
    ``pallas_sort`` / ``pallas_sort_kv`` against ``torch.sort``; records/s
@@ -51,7 +56,8 @@ Phases (any failure raises, so the exit code is non-zero):
    with the traced sums of the global-stage kernel and of the tile merge in
    the 2^26 sort, in ``block_sort`` of 2^26 and in the 2^23-record
    ``fused`` sort, and of S1 in the ``pallas`` sort of 2^26 and in ``cli
-   run --kernel pallas``.
+   run --kernel pallas``, of the gather in the ``fused`` 2^23-record
+   ``sort_kv`` and of S2 in ``pallas_sort_kv`` of the 2^23 records.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -513,10 +519,29 @@ def main() -> int:
     hold("gather_rows_kernel", f"{tuple(wv.shape)} uint8 rows by merged tags",
          lambda: (rk.gather_rows(wv, tags),), lambda: (rk.gather_rows_plain(wv, tags),))
     del wk
+    # The gather over row widths of every word path (1 and 13 bytes: bytes;
+    # 92 and 100: 4-byte words; 16 and 256: 16-byte words), totals that are
+    # and are not multiples of 32, tags a slice of wider rows, tags below 0
+    # and at or above total.  Own generator.
+    grng, cases = np.random.default_rng(11), 0
+    for row_b in (1, 13, 16, 92, 100, 256):
+        for gp, gtotal, extra in ((3, 1000, 0), (8, 4099, 61), (2, 31, 5), (5, 65536 + 17, 0)):
+            gws = torch.from_numpy(grng.integers(0, 256, (gp, gtotal, row_b), dtype=np.uint8))
+            gws = gws.to(dev)
+            gtags = torch.from_numpy(grng.integers(-5, 2 * gtotal, (gp, gtotal + extra))
+                                     .astype(np.int32)).to(dev)[:, :gtotal]
+            if not torch.equal(rk.gather_rows(gws, gtags), rk.gather_rows_plain(gws, gtags)):
+                raise AssertionError(f"gather_rows_kernel {gp}x{gtotal}x{row_b} tag stride "
+                                     f"{gtags.stride(0)}: disagrees with its plain version")
+            cases += 1
+    torch.cuda.synchronize()
+    log(f"check gather_rows_kernel sweep: {cases} cases, rows of 1/13/16/92/100/256 bytes, "
+        "totals 31..65553 (not all multiples of 32), tag strides above total, tags out of "
+        "range: bit-identical=True")
 
-    # S1 / S2 at the default tile (256 x 128 keys): int32 keys fit one CTA,
-    # int64 keys and every key+index tile take the 2-CTA cluster route.  Own
-    # generator, so the data of the phases above and below stay as they were.
+    # S1 / S2 at the default tile (256 x 128 keys), on clusters of 8 CTAs.
+    # Own generator, so the data of the phases above and below stay as they
+    # were.
     srng = np.random.default_rng(3)
     TR = 256
     for dtype, (rows, row_len) in shapes.items():
@@ -529,10 +554,40 @@ def main() -> int:
         k = torch.from_numpy(random_keys(srng, nrec, dtype) % 4096).to(dev)
         v = torch.randperm(nrec, device=dev, dtype=torch.int32)
         hold("tile_sort_kv_kernel", f"{np.dtype(dtype).name}+int32 index n=2^23 tile_rows={TR} "
-             f"({ps.cluster_size(TR, k.dtype, kv=True)} CTAs per tile)",
+             f"({ps.tile_sort_cluster_size(TR, k.dtype, kv=True)} CTAs a tile)",
              lambda: ps.tile_sort_kv(k.clone(), v.clone(), TR),
              lambda: ps.tile_sort_kv_plain(k.clone(), v.clone(), TR))
         del k, v
+    # S2 at every tile_rows the wrapper admits (T = 128 up to 131,072 pairs,
+    # 1 to 8 CTAs a tile): random, % 7 and extreme keys, each with the index
+    # as an arange, a permutation and in {0, 1, 2} (repeated pairs).
+    for dtype in (np.int32, np.int64):
+        cases, took, tile_rows = 0, {}, 1
+        while tile_rows <= 1024:
+            tile = tile_rows * ps.LANES
+            shape = (3 if tile_rows <= 256 else 2, tile)
+            inputs = tile_inputs(wrng, shape, dtype, True)
+            n_s2 = shape[0] * tile
+            indices = {"arange": np.arange(n_s2, dtype=np.int32).reshape(shape),
+                       "permutation": wrng.permutation(n_s2).astype(np.int32).reshape(shape),
+                       "in {0, 1, 2}": wrng.integers(0, 3, shape).astype(np.int32)}
+            for label, keys, _ in inputs[:2] + inputs[3:]:  # [2] repeats [1]'s keys
+                for iname, index in indices.items():
+                    k = torch.from_numpy(keys).to(dev)
+                    v = torch.from_numpy(index).to(dev)
+                    pk, pv = ps.tile_sort_kv_plain(k.clone(), v.clone(), tile_rows)
+                    ps.tile_sort_kv(k, v, tile_rows)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(k, pk) and torch.equal(v, pv)):
+                        raise AssertionError(
+                            f"tile_sort_kv_kernel {np.dtype(dtype).name} tile_rows={tile_rows} "
+                            f"{label}, index {iname}: disagrees with its plain version")
+                    cases += 1
+            took[tile_rows] = ps.tile_sort_cluster_size(tile_rows, k.dtype, kv=True)
+            tile_rows *= 2
+        log(f"check tile_sort_kv_kernel sweep {np.dtype(dtype).name}+int32 index: {cases} cases, "
+            f"tile_rows=1..1024, CTAs a tile by tile_rows {took}, random / % 7 / extreme keys x "
+            "arange / permuted / repeated indices: bit-identical=True")
     # S3: each digit histogram equal to its plain version, to torch.bincount
     # of the digits, and summing to n.
     hist_in = {np.int32: torch.from_numpy(random_keys(srng, n32, np.int32)).to(dev),
@@ -937,7 +992,12 @@ def main() -> int:
           lambda: flat_rows.index_select(0, flat_idx),
           2 * P * total_kv * row_b + P * total_kv * 4, 0,
           f"{tuple(wv.shape)} uint8, library torch.index_select")
-    del wv, wt, tags, flat_rows, flat_idx, vs_plan, ks_plan
+    # A contiguous copy of the same rows: what the card's memory gives a
+    # copy of these bytes without the gather's scattered reads.
+    copy_out = torch.empty_like(wv)
+    log(f"time copy_ of the gather's {wv.numel()} bytes (contiguous, no tags): "
+        f"{cuda_ms(lambda: copy_out.copy_(wv)):.4f} ms [{card}]")
+    del copy_out, wv, wt, tags, flat_rows, flat_idx, vs_plan, ks_plan
 
     # S1-S3 at their main-path shapes: the pallas sort's phase-1 tiles (8 x
     # 2^23 int32), the 2^23-record key+index tiles (uint64 keys as int64),
@@ -1000,6 +1060,11 @@ def main() -> int:
     sk_ms = cuda_ms(stable_sort_kv, reps=5)
     log(f"time pallas_sort_kv 2^23 TeraSort records: {pk_ms:.3f} ms, stable torch.sort + "
         f"index_select {sk_ms:.3f} ms [{card}]")
+    by_name = profile(lambda: ps.pallas_sort_kv(tkd, tvd), "pallas_sort_kv 2^23 TeraSort records",
+                      card)
+    g_ms, g_n = traced(by_name, "tile_sort_kv_kernel")
+    log(f"traced tile_sort_kv_kernel in pallas_sort_kv 2^23 TeraSort records: {g_ms:.3f} ms over "
+        f"{g_n} launches [{card}]")
     del tkd, tvd, ks2, vs2
     bs_ms = cuda_ms(lambda: tb.block_sort(xf), reps=5)
     log(f"time block_sort int32 n=2^26: {bs_ms:.3f} ms ({n32 / bs_ms / 1e6:.3f} Gkeys/s), "
@@ -1059,6 +1124,9 @@ def main() -> int:
         g_ms, g_n = traced(by_name, kname)
         log(f"traced {kname} (rank plane) in sort_kv 2^23 records fused: {g_ms:.3f} ms over "
             f"{g_n} launches [{card}]")
+    g_ms, g_n = traced(by_name, "gather_rows_kernel")
+    log(f"traced gather_rows_kernel in sort_kv 2^23 records fused: {g_ms:.3f} ms over {g_n} "
+        f"launches [{card}]")
     by_name = profile(lambda: ss_pallas.sort(x32), "SampleSort int32 n=2^26 local_kernel=pallas",
                       card)
     g_ms, g_n = traced(by_name, "tile_sort_kernel")

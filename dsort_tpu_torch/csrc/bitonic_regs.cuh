@@ -1,6 +1,6 @@
 // Register-resident bitonic stages for Hopper (sm_90a), shared by the tile
 // kernels of block_sort.cu (the tile sort and the tile merge) and tile_sort.cu
-// (S1).
+// (S1 and S2).
 //
 // A tile is held E consecutive keys a thread, in registers.  A stage at
 // distance j < E pairs keys of one thread (`thread_levels`, `thread_tail`),
@@ -197,7 +197,7 @@ __device__ __forceinline__ void smem_stage(K (&v)[E], int32_t (&q)[E], K* s, int
 // the whole thread: j >= 32E through shared memory, E <= j < 32E on warp
 // shuffles (a partial warp shuffles under the mask of its threads), j < E
 // inside the thread.  The one code path of every register-resident level,
-// in the tile sort, the tile merge and S1.
+// in the tile sort, the tile merge, S1 and S2.
 template <typename K, bool R, int E>
 __device__ __forceinline__ void level_stages(K (&v)[E], int32_t (&q)[E], K* s, int32_t* sr,
                                              int j_top, bool desc) {

@@ -40,6 +40,8 @@ namespace {
 constexpr int kMaxShards = 128;
 constexpr int kThreads = 256;
 constexpr long long kChunk = 2048;  // slot positions per block
+constexpr int kWarp = 32;
+constexpr int kGatherThreads = 256;  // 8 warps, 8 runs of 32 rows
 
 struct StepPlan {
   long long caps[kMaxShards];
@@ -152,25 +154,49 @@ __global__ void ring_exchange_kernel(
 // Replaces R2's in-kernel payload placement (ring_kernel.py:467-477): out
 // row i of destination d is workspace row tags[d][i] where that tag is a
 // real position (< total), row 0 otherwise.
-// Bound: HBM bytes, each output row written once and each gathered row
-// read once.  Design: one thread per word of an output row (the widest word
-// that divides the row and both base addresses), so stores are coalesced
-// and each gathered row is read as one contiguous segment.
+// Bound: HBM bytes, each output row written once, each gathered row and
+// each tag read once (0.53 ms at the 2^23-record shape, 8 x 1,179,648 rows
+// of 92 bytes, on H100 HBM3); no arithmetic to speak of.
+// Design: one warp per run of 32 consecutive output rows of one
+// destination (blockIdx.y).  The warp loads its 32 tags in one coalesced
+// load; the run is one contiguous span of 32 W words of `out`, and lane l
+// moves words l, l + 32, ... of it (W steps), taking each word's source
+// row from the lane that loaded its tag (`__shfl_sync`), so every store of
+// the warp is 32 consecutive words.  A word is 16 bytes where rows and both
+// bases allow, else 4 (the 92-byte TeraSort rows), else 1 (odd widths).
+// Index arithmetic is 32-bit (the C entry refuses total >= 2^29); byte
+// offsets widen only in the multiply that forms each address, and the copy
+// loop divides nothing.  (Staging the span in shared memory to store it 16
+// bytes at a time was slower on an H100: PERF.md §6.)
 template <typename V>
-__global__ void gather_rows_kernel(const V* __restrict__ ws,
-                                   const int32_t* __restrict__ tags,
-                                   V* __restrict__ out, long long rows,
-                                   long long total, long long tag_stride,
-                                   long long words) {
-  const long long gid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= rows * total * words) return;
-  const long long w = gid % words;
-  const long long ri = gid / words;
-  const long long d = ri / total;
-  const long long t = tags[d * tag_stride + ri % total];
-  const long long src = (t >= 0 && t < total) ? t : 0;
-  out[gid] = ws[(d * total + src) * words + w];
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows_kernel(const V* __restrict__ ws, const int32_t* __restrict__ tags,
+                       V* __restrict__ out, int total, long long tag_stride, int W) {
+  const int lane = static_cast<int>(threadIdx.x) & (kWarp - 1);
+  const int warp = static_cast<int>(threadIdx.x) / kWarp;
+  const int i0 = (static_cast<int>(blockIdx.x) * (kGatherThreads / kWarp) + warp) * kWarp;
+  if (i0 >= total) return;  // the whole warp
+  const int d = static_cast<int>(blockIdx.y);
+  const int n = total - i0 < kWarp ? total - i0 : kWarp;  // rows of this run
+  const int t = lane < n ? __ldg(tags + d * tag_stride + i0 + lane) : 0;
+  const int src = t >= 0 && t < total ? t : 0;
+  const V* wsd = ws + static_cast<size_t>(d) * static_cast<unsigned>(total) * W;
+  V* span = out + (static_cast<size_t>(d) * static_cast<unsigned>(total) + i0) * W;
+  // Word f = lane + 32 m of the span is word w of row r: start at f = lane
+  // and step 32 words, i.e. q rows and rem words.
+  const int q = kWarp / W, rem = kWarp % W;
+  int r = lane / W, w = lane % W;
+#pragma unroll 4
+  for (int m = 0, f = lane; m < W; ++m, f += kWarp) {
+    const int s = __shfl_sync(0xffffffffu, src, r);
+    if (r < n) span[f] = __ldg(wsd + static_cast<size_t>(static_cast<unsigned>(s)) * W + w);
+    w += rem;
+    r += q;
+    if (w >= W) {
+      w -= W;
+      ++r;
+    }
+  }
 }
 
 template <typename K>
@@ -207,17 +233,16 @@ int launch_exchange(const void* xs, const void* starts, const void* lens,
 }
 
 template <typename V>
-int launch_gather(const void* ws, const void* tags, void* out, long long rows,
-                  long long total, long long tag_stride, long long row_bytes,
-                  void* stream) {
-  const long long words = row_bytes / static_cast<long long>(sizeof(V));
-  const long long n = rows * total * words;
-  if (n == 0) return static_cast<int>(cudaSuccess);
-  gather_rows_kernel<V>
-      <<<static_cast<unsigned int>((n + kThreads - 1) / kThreads), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const V*>(ws), static_cast<const int32_t*>(tags),
-          static_cast<V*>(out), rows, total, tag_stride, words);
+int launch_gather(const void* ws, const void* tags, void* out, long long rows, long long total,
+                  long long tag_stride, long long row_bytes, void* stream) {
+  constexpr int kRuns = kGatherThreads / kWarp;  // runs of 32 rows a block
+  const long long runs = (total + kWarp - 1) / kWarp;
+  const dim3 grid(static_cast<unsigned int>((runs + kRuns - 1) / kRuns),
+                  static_cast<unsigned int>(rows));
+  gather_rows_kernel<V><<<grid, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(ws), static_cast<const int32_t*>(tags), static_cast<V*>(out),
+      static_cast<int>(total), tag_stride,
+      static_cast<int>(row_bytes / static_cast<long long>(sizeof(V))));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,23 +270,24 @@ int dsort_ring_exchange_i64(const void* xs, const void* starts,
                                   slot, row_bytes, caps, stream);
 }
 
+// Refuses, without launching, total >= 2^29 (the kv tags' int32 limit),
+// more than 65,535 destinations and rows of 2^25 bytes or more.
 int dsort_gather_rows(const void* ws, const void* tags, void* out,
                       long long rows, long long total, long long tag_stride,
                       long long row_bytes, void* stream) {
+  if (rows < 0 || rows > 65535 || total < 0 || total >= (1LL << 29) || row_bytes < 0 ||
+      row_bytes >= (1LL << 25))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0 || total == 0 || row_bytes == 0) return static_cast<int>(cudaSuccess);
   const uintptr_t a = reinterpret_cast<uintptr_t>(ws) |
                       reinterpret_cast<uintptr_t>(out) |
                       static_cast<uintptr_t>(row_bytes);
   if ((a & 15) == 0)
-    return launch_gather<uint4>(ws, tags, out, rows, total, tag_stride,
-                                row_bytes, stream);
-  if ((a & 7) == 0)
-    return launch_gather<uint2>(ws, tags, out, rows, total, tag_stride,
-                                row_bytes, stream);
+    return launch_gather<uint4>(ws, tags, out, rows, total, tag_stride, row_bytes, stream);
   if ((a & 3) == 0)
-    return launch_gather<uint32_t>(ws, tags, out, rows, total, tag_stride,
-                                   row_bytes, stream);
-  return launch_gather<unsigned char>(ws, tags, out, rows, total, tag_stride,
-                                      row_bytes, stream);
+    return launch_gather<uint32_t>(ws, tags, out, rows, total, tag_stride, row_bytes, stream);
+  return launch_gather<unsigned char>(ws, tags, out, rows, total, tag_stride, row_bytes,
+                                      stream);
 }
 
 }  // extern "C"

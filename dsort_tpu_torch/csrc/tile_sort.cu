@@ -13,15 +13,17 @@
 // ordered ascending iff bit k of i is clear.  The reference's row-major
 // (rows, 128) VMEM layout is the flat in-tile index here, so the network and
 // its result are the same.  S2 carries an int32 index beside each key and
-// orders pairs by (key, index); one thread owns both members of a pair and
-// decides the swap from (first, second) alone, so equal keys can never
-// duplicate or lose an index (pallas_sort.py:108-114).
+// orders pairs by (key, index) (the rank plane of bitonic_regs.cuh); the two
+// holders of a pair decide its swap from one comparison, so equal keys can
+// never duplicate or lose an index (pallas_sort.py:108-114).
 //
 // A tile is held by a thread-block cluster of C CTAs (a power of two up to
-// 8; C = 1 is one CTA), each holding a contiguous L = T / C of it.  A stage
-// whose distance j is at least L pairs CTA r with CTA r ^ (j / L) at the
-// same local offset, through distributed shared memory between two cluster
-// barriers; every other stage stays inside one CTA.
+// 8; C = 1 is one CTA), each holding a contiguous L = T / C of it in
+// registers, E consecutive keys (and indices) a thread.  A stage whose
+// distance j is at least L pairs CTA r with CTA r ^ (j / L) at the same
+// local offset, through distributed shared memory between two cluster
+// barriers (`cluster_stage`); every other stage stays inside one CTA
+// (`level_stages` of bitonic_regs.cuh, shared with K1 and the tile merge).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns the launch's cudaError_t (0 on success).
@@ -55,102 +57,42 @@ constexpr int kSharedHistBits = 13;  // 32 KB of int32 buckets in shared memory
 // (PERF.md §6).
 constexpr int kSortKeys = 16;
 
-// Orders (a, va) and (b, vb) by (key, index) ascending (asc) or descending,
-// in place (S2).
-template <typename K>
-__device__ __forceinline__ void order_entries(K* a, K* b, int32_t* va, int32_t* vb, bool asc) {
-  const K x = *a, y = *b;
-  const int32_t u = *va, w = *vb;
-  const bool first_gt = x > y || (x == y && u > w);
-  const bool second_gt = y > x || (x == y && w > u);
-  if (asc ? first_gt : second_gt) {
-    *a = y;
-    *b = x;
-    *va = w;
-    *vb = u;
-  }
-}
-
-// Copies n elements between global and shared memory with 16-byte accesses
-// where the global address and the byte count allow them.
-template <typename T>
-__device__ __forceinline__ void copy_run(T* dst, const T* src, int n) {
-  const int nbytes = n * static_cast<int>(sizeof(T));
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0 &&
-      (nbytes & 15) == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int t = threadIdx.x; t < (nbytes >> 4); t += blockDim.x) d4[t] = s4[t];
-  } else {
-    for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
-  }
-}
-
-// S2's whole network on one tile of (key, index) pairs, in place, out of
-// shared memory.  CTA `rank` of a cluster of C holds keys
-// [rank * L, (rank + 1) * L) of tile blockIdx.x / C; the lower CTA of a pair
-// of CTAs orders both members of a stage across them.
-template <typename K>
-__device__ __forceinline__ void tile_network(K* __restrict__ x, int32_t* __restrict__ v,
-                                             int T, int C) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = T / C;
-  K* s = reinterpret_cast<K*>(smem_raw);
-  int32_t* sv = reinterpret_cast<int32_t*>(s + L);
-  const int rank = static_cast<int>(blockIdx.x % C);
-  const long long base =
-      static_cast<long long>(blockIdx.x / C) * T + static_cast<long long>(rank) * L;
-  copy_run(s, x + base, L);
-  copy_run(sv, v + base, L);
-  __syncthreads();
-  const int g0 = rank * L;  // in-tile index of s[0]
-  for (int k = 2; k <= T; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      if (j < L) {
-        for (int q = threadIdx.x; q < (L >> 1); q += blockDim.x) {
-          const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-          order_entries<K>(s + i, s + i + j, sv + i, sv + i + j, ((g0 + i) & k) == 0);
-        }
-        __syncthreads();
-        continue;
-      }
-      // The partner half lies in CTA rank ^ (j / L) at the same offsets.
-      cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();
-      if ((rank & (j / L)) == 0) {
-        const int partner = rank ^ (j / L);
-        K* ps = cluster.map_shared_rank(s, partner);
-        int32_t* psv = cluster.map_shared_rank(sv, partner);
-        for (int t = threadIdx.x; t < L; t += blockDim.x)
-          order_entries<K>(s + t, ps + t, sv + t, psv + t, ((g0 + t) & k) == 0);
-      }
-      cluster.sync();
-    }
-  }
-  copy_run(x + base, s, L);
-  copy_run(v + base, sv, L);
-}
+// S2's pairs a thread (E).  A CTA holds its share L of the tile in L / E
+// threads; the share is ops/pallas_sort.py's tile_sort_cluster_size (kv),
+// 4,096 pairs where the tile has more (8 CTAs of 256 threads at T = 32768)
+// and at most 16,384 (what shared memory holds).  On an H100 E = 16 at 8
+// CTAs beat E = 8 and 4 CTAs for both key types, though int64 spills (232
+// bytes of spill stores) under the 64 registers of __launch_bounds__(1024)
+// (PERF.md §6; dsort_tpu_torch/tools/s1_forms.py --kv).
+constexpr int kKvKeys = 16;
 
 // A stage at distance j = d L, d >= 1, across the CTAs of a cluster: every
-// thread publishes its run in its own CTA's shared memory, a cluster
-// barrier, reads the run of the same thread in CTA rank ^ d and keeps its
-// side; the second barrier holds every CTA's buffer until its partner has
-// read it.  Both CTAs of a pair work, and none writes another's memory.
-template <typename K, int E>
-__device__ __forceinline__ void cluster_stage(K (&v)[E], K* s, int rank, int d, bool desc) {
+// thread publishes its run (and, with R, its ranks) in its own CTA's shared
+// memory, a cluster barrier, reads the run of the same thread in CTA
+// rank ^ d and keeps its side; the second barrier holds every CTA's buffer
+// until its partner has read it.  Both CTAs of a pair work, and none writes
+// another's memory.
+template <typename K, bool R, int E>
+__device__ __forceinline__ void cluster_stage(K (&v)[E], int32_t (&q)[E], K* s, int32_t* sr,
+                                              int rank, int d, bool desc) {
   constexpr int G = 4;  // keys per step, as smem_stage
   cg::cluster_group cluster = cg::this_cluster();
   put_chunks<K, E>(s, v);
+  if constexpr (R) put_chunks<int32_t, E>(sr, q);
   cluster.sync();
   const K* ps = cluster.map_shared_rank(s, rank ^ d);
+  const int32_t* psr = nullptr;
+  if constexpr (R) psr = cluster.map_shared_rank(sr, rank ^ d);
   const bool up = (rank & d) != 0;
-  int32_t no_rank = 0;
 #pragma unroll
   for (int g = 0; g < E / G; ++g) {
     K p[G];
+    int32_t pr[G] = {};
     get_chunks<K, G>(p, ps, threadIdx.x, g);
+    if constexpr (R) get_chunks<int32_t, G>(pr, psr, threadIdx.x, g);
 #pragma unroll
-    for (int u = 0; u < G; ++u) order_with<K, false>(v[g * G + u], no_rank, p[u], 0, up, desc);
+    for (int u = 0; u < G; ++u)
+      order_with<K, R>(v[g * G + u], q[g * G + u], p[u], pr[u], up, desc);
   }
   cluster.sync();
 }
@@ -184,22 +126,45 @@ __global__ void __launch_bounds__(kTileThreads) tile_sort_kernel(K* __restrict__
   for (int k = 2 * E; k <= T; k <<= 1) {
     const bool desc = (i0 & k) != 0;
     int j = k >> 1;
-    for (; j >= L; j >>= 1) cluster_stage<K, E>(v, s, rank, j / L, desc);
+    for (; j >= L; j >>= 1) cluster_stage<K, false, E>(v, q, s, nullptr, rank, j / L, desc);
     level_stages<K, false, E>(v, q, s, nullptr, j, desc);
   }
   store_run<K, E>(run, v);
 }
 
-// S2.  Bound: each key and index is read and written once (2 T (sizeof(K) +
-// 4) HBM bytes a tile); the log2(T)(log2(T)+1)/2 stages (120 at T = 32768)
-// run out of shared memory, one barrier each, so the limit on this card is
-// shared-memory bandwidth and the barriers, not HBM.  Design: one tile per
-// cluster (every tile at T = 32768 needs two CTAs), 1024 threads owning
-// L / 2048 pairs each per stage; the network is the reference's, unchanged.
-template <typename K>
-__global__ void __launch_bounds__(kTileThreads) tile_sort_kv_kernel(K* x, int32_t* v, int T,
-                                                                    int C) {
-  tile_network<K>(x, v, T, C);
+// S2.  Bound: each key and index is read and written once, 2 T (sizeof(K)
+// + 4) HBM bytes a tile (0.06 ms for the 2^23 records' int64 tiles on H100
+// HBM3); against that stand the 120 stages of compare-exchanges at
+// T = 32768, so, as for S1, the kernel is bound by instructions, not HBM.
+// Design: S1's, with the index as the rank plane (`R = true` of every
+// stage helper): each CTA holds its L = T / C pairs E a thread in
+// registers (keys and indices loaded and stored 16 bytes at a time);
+// stages j < E run in the thread, E <= j < 32E on shuffles, 32E <= j < L
+// through shared memory, j >= L across CTAs, both CTAs of a pair working
+// (at T = 32768, E = 16, C = 8: S1's 54 / 45 / 15 / 6 of the 120 stages).
+template <typename K, int E>
+__global__ void __launch_bounds__(kTileThreads)
+    tile_sort_kv_kernel(K* __restrict__ x, int32_t* __restrict__ ix, int T, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = T / C;
+  K* s = reinterpret_cast<K*>(smem_raw);
+  int32_t* sr = reinterpret_cast<int32_t*>(s + L);
+  const int rank = static_cast<int>(blockIdx.x % C);
+  const int i0 = rank * L + static_cast<int>(threadIdx.x) * E;
+  const long long at = static_cast<long long>(blockIdx.x / C) * T + i0;
+  K v[E];
+  int32_t q[E];
+  load_run<K, E>(v, x + at);
+  load_run<int32_t, E>(q, ix + at);
+  thread_levels<K, true, E>(v, q, i0, 2);
+  for (int k = 2 * E; k <= T; k <<= 1) {
+    const bool desc = (i0 & k) != 0;
+    int j = k >> 1;
+    for (; j >= L; j >>= 1) cluster_stage<K, true, E>(v, q, s, sr, rank, j / L, desc);
+    level_stages<K, true, E>(v, q, s, sr, j, desc);
+  }
+  store_run<K, E>(x + at, v);
+  store_run<int32_t, E>(ix + at, q);
 }
 
 // The radix digit (x >> shift) & (2^bits - 1): an arithmetic shift for
@@ -304,12 +269,14 @@ int launch_tile_sort(void* x, long long tiles, int T, int C, void* stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// S2: L / 2 threads a CTA, at most 1024; a CTA share of at least 64 keys.
+// S2 on shares of L = T / C pairs, L / kKvKeys threads a CTA, up to
+// kKvKeys * 1024 pairs a share; refuses anything else.
 template <typename K>
 int launch_tile_sort_kv(void* x, void* v, long long tiles, int T, int C, void* stream) {
-  if (!tile_shape_ok(T, C) || T / C < 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (!tile_shape_ok(T, C) || T / C < kKvKeys || T / C > kKvKeys * kTileThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int L = T / C;
-  return launch_tiles(tile_sort_kv_kernel<K>, tiles, C, L / 2 < kTileThreads ? L / 2 : kTileThreads,
+  return launch_tiles(tile_sort_kv_kernel<K, kKvKeys>, tiles, C, L / kKvKeys,
                       static_cast<long long>(L) * (sizeof(K) + 4), stream, static_cast<K*>(x),
                       static_cast<int32_t*>(v), T, C);
 }

@@ -21,11 +21,10 @@ version here:
 
 A tile is ``tile_rows * 128`` keys, the reference's ``(tile_rows, 128)``
 block read in row-major order; at the default ``tile_rows=256`` that is
-32,768 keys.  S1 sorts a tile of more than 4,096 keys with a thread-block
-cluster of CTAs, each holding its share in registers
-(`tile_sort_cluster_size`: 8 CTAs at the default tile); S2 takes a cluster
-of 2 CTAs for a tile larger than one CTA's shared memory, every key+index
-tile at that size (`cluster_size`; ``csrc/tile_sort.cu``).
+32,768 keys.  S1 and S2 sort a tile of more than 4,096 keys with a
+thread-block cluster of CTAs, each holding its share in registers
+(`tile_sort_cluster_size`: 8 CTAs at the default tile;
+``csrc/tile_sort.cu``).
 
 `pallas_sort` and `pallas_sort_kv` work along the last axis over a batch of
 rows, so the P shards of a virtual mesh take one call; unsigned and float
@@ -50,7 +49,8 @@ _HIST_DTYPES = {torch.int32: "i32", torch.int64: "i64", torch.uint32: "u32", tor
 #: Dynamic shared memory one CTA may hold on sm_90 (csrc/tile_sort.cu kMaxSmem).
 _SMEM_BYTES = 232448
 _MAX_CLUSTER = 8
-#: Keys one CTA of S1 holds at most, where shared memory allows more.
+#: Keys (S1) or pairs (S2) one CTA holds at most, where shared memory
+#: allows more.
 _SORT_SHARE = 4096
 
 _LAUNCHES = {"tile_sort_kernel": 0, "tile_sort_kv_kernel": 0, "radix_histogram_kernel": 0}
@@ -79,7 +79,7 @@ def _route(x: torch.Tensor) -> bool:
 def cluster_size(tile_rows: int, dtype: torch.dtype, kv: bool = False) -> int:
     """The fewest CTAs, a power of two, whose shares of a ``tile_rows``
     tile of ``dtype`` keys (and, with ``kv``, their int32 index) fit one
-    CTA's shared memory: S2's cluster, and the least of S1's."""
+    CTA's shared memory: the least of S1's (S2's with ``kv``) cluster."""
     tile, key_bytes = tile_rows * LANES, dtype.itemsize + (4 if kv else 0)
     c = 1
     while tile // c * key_bytes > _SMEM_BYTES:
@@ -91,15 +91,17 @@ def cluster_size(tile_rows: int, dtype: torch.dtype, kv: bool = False) -> int:
     return c
 
 
-def tile_sort_cluster_size(tile_rows: int, dtype: torch.dtype) -> int:
+def tile_sort_cluster_size(tile_rows: int, dtype: torch.dtype, kv: bool = False) -> int:
     """CTAs per tile `tile_sort` (S1) launches with for ``tile_rows`` tiles
-    of ``dtype`` keys: shares of at most `_SORT_SHARE` keys (256 threads of
-    16 keys a CTA), never fewer CTAs than shared memory needs
+    of ``dtype`` keys, and with ``kv`` `tile_sort_kv` (S2) for the keys and
+    their int32 index: shares of at most `_SORT_SHARE` keys (256 threads of
+    16 keys, or pairs, a CTA), never fewer CTAs than shared memory needs
     (`cluster_size`), and at most 8.  On an H100 eight CTAs of 4,096 keys
     sorted a 32,768-key tile faster than one, two or four for both key
-    types (PERF.md §6); S2 keeps `cluster_size`."""
+    types, and eight of 4,096 pairs beat four and 8 pairs a thread for S2
+    (PERF.md §6)."""
     tile = tile_rows * LANES
-    return min(_MAX_CLUSTER, max(cluster_size(tile_rows, dtype), tile // _SORT_SHARE))
+    return min(_MAX_CLUSTER, max(cluster_size(tile_rows, dtype, kv), tile // _SORT_SHARE))
 
 
 def _check_tiles(x: torch.Tensor, tile_rows: int, name: str) -> int:
@@ -202,7 +204,7 @@ def tile_sort_kv(
     with torch.cuda.device(x.device):
         err = getattr(_library(), f"dsort_tile_sort_kv_{suffix}")(
             x.data_ptr(), v.data_ptr(), x.numel() // tile, tile,
-            cluster_size(tile_rows, x.dtype, kv=True),
+            tile_sort_cluster_size(tile_rows, x.dtype, kv=True),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

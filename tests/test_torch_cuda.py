@@ -223,8 +223,15 @@ def _exchange_inputs(rng, p, n_local, dtype, row_bytes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,dtype,row_bytes", [(8, np.int32, 92), (7, np.int64, 13), (2, np.int64, 16)])
+@pytest.mark.parametrize("p,dtype,row_bytes", [
+    (8, np.int32, 92), (7, np.int64, 13), (2, np.int64, 16),
+    (3, np.int32, 1), (5, np.int64, 100), (4, np.int32, 256), (6, np.int64, 92),
+])
 def test_ring_exchange_and_gather_match_plain(cuda, p, dtype, row_bytes):
+    """The exchange (keys, kv) and the gather bit-identical to their plain
+    versions; the gather on the exchange's workspace, with its tags a slice
+    of wider rows (stride above total), and on a ``total`` that is not a
+    multiple of 32, tags below 0 and at or above ``total`` included."""
     rng = np.random.default_rng(p)
     xs, starts, lens, caps, payload = _exchange_inputs(rng, p, 20_000, dtype, row_bytes)
     host = [torch.from_numpy(a) for a in (xs, starts, lens, payload)]
@@ -239,10 +246,13 @@ def test_ring_exchange_and_gather_match_plain(cuda, p, dtype, row_bytes):
                 assert torch.equal(g.cpu(), w)
     total = sum(caps)
     ws = want[2]
-    tags = torch.from_numpy(rng.integers(-3, 2 * total, (p, total)).astype(np.int32))
-    assert torch.equal(rk.gather_rows(ws.to(cuda), tags.to(cuda)).cpu(), rk.gather_rows_plain(ws, tags))
+    for rows, extra in ((ws, 0), (ws, 37), (ws[:, : total - 3].contiguous(), 5)):
+        n = rows.shape[1]
+        tags = torch.from_numpy(rng.integers(-3, 2 * n, (p, n + extra)).astype(np.int32))[:, :n]
+        got = rk.gather_rows(rows.to(cuda), tags.to(cuda))
+        assert torch.equal(got.cpu(), rk.gather_rows_plain(rows, tags))
     assert rk.launch_counts() == {
-        "ring_exchange_kernel": 1, "ring_exchange_kernel+kv": 1, "gather_rows_kernel": 1,
+        "ring_exchange_kernel": 1, "ring_exchange_kernel+kv": 1, "gather_rows_kernel": 3,
     }
 
 
@@ -309,8 +319,8 @@ def test_seven_shards_on_cuda(cuda):
                                              (np.int64, 512)])
 def test_tile_sorts_match_plain_versions(cuda, dtype, tile_rows):
     """S1 / S2 bit-identical to their plain versions, through one CTA per
-    tile and through the cluster routes (S1: 8 CTAs at 32,768 and 65,536
-    keys; S2: 2 and 4)."""
+    tile and through the cluster routes (8 CTAs at 32,768 and 65,536
+    keys)."""
     from dsort_tpu_torch.ops import pallas_sort as ps
 
     rng = np.random.default_rng(13)
@@ -351,6 +361,37 @@ def test_tile_sort_sweep_matches_plain_version(cuda, dtype, tile_rows):
         got = ps.tile_sort(x.clone(), tile_rows)
         assert torch.equal(got, ps.tile_sort_plain(x.clone(), tile_rows))
         assert ps.launch_counts()["tile_sort_kernel"] == 1
+
+
+S2_SWEEP = [(dtype, 1 << e) for dtype in (np.int32, np.int64) for e in range(11)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tile_rows", S2_SWEEP)
+def test_tile_sort_kv_sweep_matches_plain_version(cuda, dtype, tile_rows):
+    """S2 bit-identical to its plain version at every tile_rows the wrapper
+    admits (T = 128 up to 131,072 pairs: 1, 2, 4 and 8 CTAs a tile), on
+    random, % 7 and extreme keys, each with the index as an arange, a
+    permutation and in {0, 1, 2} (repeated (key, index) pairs); one launch
+    counted per call."""
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    rng = np.random.default_rng(17)
+    tile = tile_rows * ps.LANES
+    shape = (3 if tile_rows <= 256 else 2, tile)
+    n = shape[0] * tile
+    inputs = _tile_inputs(rng, shape, dtype, True)
+    indices = (np.arange(n, dtype=np.int32).reshape(shape),
+               rng.permutation(n).astype(np.int32).reshape(shape),
+               rng.integers(0, 3, shape).astype(np.int32))
+    for keys, _ in inputs[:2] + inputs[3:]:  # [2] repeats [1]'s keys
+        for index in indices:
+            k, v = torch.from_numpy(keys).to(cuda), torch.from_numpy(index).to(cuda)
+            ps.reset_launch_counts()
+            gk, gv = ps.tile_sort_kv(k.clone(), v.clone(), tile_rows)
+            pk, pv = ps.tile_sort_kv_plain(k.clone(), v.clone(), tile_rows)
+            assert torch.equal(gk, pk) and torch.equal(gv, pv)
+            assert ps.launch_counts()["tile_sort_kv_kernel"] == 1
 
 
 @pytest.mark.cuda

@@ -223,6 +223,26 @@ def test_ring_exchange_plain_layout():
     assert not any(rk.launch_counts().values())  # CPU tensors: plain versions only
 
 
+@pytest.mark.parametrize("row_bytes", [1, 13, 92])
+def test_gather_rows_plain_reads_strided_tags(row_bytes):
+    """The gather's plain version on tags that are a leading slice of wider
+    rows (tag stride above ``total``, as the merged workspace gives them),
+    ``total`` not a multiple of 32, tags below 0 and at or above ``total``
+    (row 0), against numpy."""
+    rng = np.random.default_rng(row_bytes)
+    p, total = 3, 45
+    ws = rng.integers(0, 256, (p, total, row_bytes), dtype=np.uint8)
+    wide = rng.integers(-4, 2 * total, (p, total + 19)).astype(np.int32)
+    wide[:, :3] = [-1, total, 0]
+    tags = torch.from_numpy(wide)[:, :total]
+    assert tags.stride(0) > total
+    got = rk.gather_rows(torch.from_numpy(ws), tags).numpy()
+    t = wide[:, :total]
+    src = np.where((t >= 0) & (t < total), t, 0)
+    np.testing.assert_array_equal(got, np.take_along_axis(ws, src[:, :, None], axis=1))
+    assert not any(rk.launch_counts().values())
+
+
 def test_fused_needs_cuda_or_cpu_tensors():
     x = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     z = torch.zeros((2, 2), dtype=torch.int64, device="meta")

@@ -132,6 +132,29 @@ def test_tile_sort_matches_jax_tile_kernel(tile_rows, kind):
 
 
 @pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("tile_rows", [1, 2])
+def test_tile_sort_kv_matches_jax_tile_kernel(tile_rows, kind):
+    """S2's wrapper on CPU tensors (its plain version) against the JAX
+    package's `_tile_sort_kv` (the Pallas key+index tile kernel,
+    interpreted), int32 keys and a permuted int32 index, three tiles; with
+    ties the index orders equal keys."""
+    rng = np.random.default_rng(30 * tile_rows + len(kind))
+    n = 3 * tile_rows * ps.LANES
+    x = _tile_keys(rng, kind, n, np.int32)
+    v = rng.permutation(n).astype(np.int32)
+    want_k, want_v = jps._tile_sort_kv(jnp.asarray(x.reshape(-1, ps.LANES)),
+                                       jnp.asarray(v.reshape(-1, ps.LANES)),
+                                       rows=tile_rows, interpret=True)
+    got_k, got_v = ps.tile_sort_kv(_t(x.copy()), _t(v.copy()), tile_rows)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k).reshape(-1))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v).reshape(-1))
+    order = np.lexsort((v.reshape(3, -1), x.reshape(3, -1)), axis=1)
+    np.testing.assert_array_equal(got_v.numpy(), np.take_along_axis(v.reshape(3, -1), order, 1)
+                                  .reshape(-1))
+    assert not any(ps.launch_counts().values())
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
 @pytest.mark.parametrize("tile_rows", [1, 2, 8])
 def test_tile_sort_int64_sorts_each_tile(tile_rows, kind):
     rng = np.random.default_rng(20 * tile_rows + len(kind))
@@ -232,7 +255,7 @@ def test_tile_wrappers_check_their_inputs():
 
 def test_cluster_route_sizes():
     """The default 32,768-key tile fits one CTA as int32 keys; int64 keys
-    and every key+index tile take a 2-CTA cluster."""
+    and every key+index tile need two CTAs' shared memory."""
     assert ps.cluster_size(256, torch.int32) == 1
     assert ps.cluster_size(256, torch.int64) == 2
     assert ps.cluster_size(256, torch.int32, kv=True) == 2
@@ -245,7 +268,7 @@ def test_cluster_route_sizes():
 def test_tile_sort_cluster_sizes(dtype):
     """S1's own rule: CTA shares of at most 4,096 keys (8 CTAs at the
     default 32,768-key tile, both key types), never fewer CTAs than shared
-    memory needs (S2's `cluster_size`), at most 8, and a share the kernel
+    memory needs (`cluster_size`), at most 8, and a share the kernel
     takes (16 keys a thread up to 16,384 a share, 32 at 32,768, int32
     only)."""
     assert ps.tile_sort_cluster_size(32, dtype) == 1
@@ -262,6 +285,31 @@ def test_tile_sort_cluster_sizes(dtype):
         assert share * dtype.itemsize <= ps._SMEM_BYTES
         assert share <= 4096 or c == 8
         assert share <= 16384 or (share == 32768 and dtype == torch.int32)
+        tile_rows *= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_tile_sort_kv_cluster_sizes(dtype):
+    """S2's rule (`tile_sort_cluster_size` with ``kv``): CTA shares of at
+    most 4,096 pairs (8 CTAs at the default 32,768-pair tile, both key
+    types), never fewer CTAs than shared memory needs (`cluster_size` with
+    ``kv``), at most 8, and a share the kernel takes (16 pairs a thread, up
+    to 16,384 a share)."""
+    assert ps.tile_sort_cluster_size(32, dtype, kv=True) == 1
+    assert ps.tile_sort_cluster_size(64, dtype, kv=True) == 2
+    assert ps.tile_sort_cluster_size(128, dtype, kv=True) == 4
+    assert ps.tile_sort_cluster_size(256, dtype, kv=True) == 8
+    assert ps.tile_sort_cluster_size(1024, dtype, kv=True) == 8
+    with pytest.raises(ValueError, match="shared memory"):
+        ps.tile_sort_cluster_size(2048, dtype, kv=True)
+    tile_rows = 1
+    while tile_rows <= 1024:
+        c = ps.tile_sort_cluster_size(tile_rows, dtype, kv=True)
+        share = tile_rows * ps.LANES // c
+        assert c & (c - 1) == 0 and ps.cluster_size(tile_rows, dtype, kv=True) <= c <= 8
+        assert share * (dtype.itemsize + 4) <= ps._SMEM_BYTES
+        assert share <= 4096 or c == 8
+        assert 16 <= share <= 16384
         tile_rows *= 2
 
 
