@@ -32,7 +32,8 @@ Phases (any failure raises, so the exit code is non-zero):
    checked against numpy:
    ``SampleSort(VirtualMesh(8)).sort`` under the default ``alltoall`` at
    2^26 uniform int32, 2^24 zipf int64 (must take the capacity retry) and
-   2^20 float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line file;
+   2^20 float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line file
+   (through ``SpmdScheduler``, as ``dsort run`` in its default mode);
    the same sort under ``ring`` and ``fused`` at 2^26 int32 and 2^24 zipf
    int64 (no capacity retry, one exchange launch per fused sort);
    ``sort_kv`` of 2^23 TeraSort records under all three exchanges, 2^22
@@ -57,7 +58,20 @@ Phases (any failure raises, so the exit code is non-zero):
    the 2^26 sort, in ``block_sort`` of 2^26 and in the 2^23-record
    ``fused`` sort, and of S1 in the ``pallas`` sort of 2^26 and in ``cli
    run --kernel pallas``, of the gather in the ``fused`` 2^23-record
-   ``sort_kv`` and of S2 in ``pallas_sort_kv`` of the 2^23 records.
+   ``sort_kv`` and of S2 in ``pallas_sort_kv`` of the 2^23 records;
+6. the fault plane (`fault_plane`): ``SpmdScheduler(8).sort`` of 2^26 int32
+   beside ``SampleSort`` in turns (the scheduler's own cost); a worker lost
+   before dispatch (7 survivors) and two lost in turn (6), at 2^26 int32; a
+   worker lost between the ring plan and the exchange under ``ring`` and
+   ``fused`` at 2^24 zipf int64 (7 + 6 ring steps, two fused plans, one
+   exchange launch); a hang with healthy probes (bounded retry) and a hang
+   with a failed probe (re-form), each detected before the hang ends and
+   drained after; every worker dead (a clean `JobFailedError`); the probe's
+   round trip; one real device-side assert in a child process (a program
+   error: it propagates with no probe or re-form); the time to recover from
+   a loss before dispatch, a mid-ring loss and a hang, faulted minus healthy
+   in turns.  Every output is checked against numpy, every counter and
+   journal order asserted, and the re-runs' launch counts printed.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -285,6 +299,281 @@ class StageTally:
             levels[-1][0] += s
         least = sum(-(-g // s_max) for g, s_max in levels)
         return sum(c[2] for c in calls), len(calls), least
+
+
+def wait_idle(sched, tag: str = "spmd", limit_s: float = 60.0) -> float:
+    """Wait until the scheduler's full-mesh lane is idle: an attempt
+    abandoned by a lapsed wait runs on to its end there, beside whatever
+    runs next.  Returns the seconds waited."""
+    t0 = time.monotonic()
+    while sched.lane_stuck_for(tag) > 0:
+        if time.monotonic() - t0 > limit_s:
+            raise AssertionError(f"the {tag} lane is still busy after {limit_s} s")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def real_error_child() -> int:
+    """One scheduler attempt that hits a real device-side assert (an
+    out-of-range ``index_select`` on the card).  Prints what the scheduler
+    made of it as JSON and exits 3 when the error propagated."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+    from dsort_tpu_torch.scheduler import SpmdScheduler
+    from dsort_tpu_torch.scheduler.fault import classify_runtime_error
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    def out_of_range(self, data, metrics=None):
+        x = torch.arange(8, device=self.mesh.device)
+        return torch.index_select(x, 0, torch.tensor([100], device=self.mesh.device)).cpu()
+
+    SampleSort.sort = out_of_range
+    sched = SpmdScheduler(8, job=JobConfig(settle_delay_s=0.01))
+    journal = EventLog()
+    m = Metrics(journal=journal)
+    try:
+        sched.sort(np.arange(1 << 20, dtype=np.int32), m)
+    except Exception as e:
+        print(json.dumps({
+            "type": type(e).__name__, "error_code": getattr(e, "error_code", None),
+            "message": str(e).splitlines()[0], "classified": classify_runtime_error(e),
+            "counters": dict(m.counters), "events": journal.types(),
+            "live": sched.table.live_workers(),
+        }))
+        return 3
+    print(json.dumps({"type": None}))
+    return 0
+
+
+class ReformTap:
+    """`Metrics` tap: the launch counts at each ``mesh_reform`` event, so a
+    faulted sort's launches split into the failed attempts' and the
+    re-run's."""
+
+    def __init__(self, counts):
+        self.counts, self.at = counts, []
+
+    def observe(self, etype, fields, mono, metrics):
+        if etype == "mesh_reform":
+            self.at.append(self.counts())
+
+
+def fault_plane(card, ss, x32, ref32, z, refz, reset, counts, launched, keys_path) -> None:
+    """Phase 6: `SpmdScheduler` drills at full size, each output against
+    numpy, each counter and journal order asserted; then the scheduler's own
+    cost, the probe's round trip and the time to recover, in turns.  ``ss``
+    is the phase-4 `SampleSort(VirtualMesh(8))`; ``x32`` / ``z`` its 2^26
+    int32 and 2^24 zipf int64 keys with their numpy sorts."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.scheduler import FaultInjector, JobFailedError, SpmdScheduler
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    def faulted(label, sched, data, reference, arm, exchange=None):
+        """One drill: ``arm(injector)``, sort with the launch counts set to 0
+        just before; checks the bits; returns the metrics, the journal's
+        types and the launches of the last re-run (after the last re-form)."""
+        arm(sched.injector)
+        tap = ReformTap(counts)
+        m = Metrics(journal=EventLog(), taps=[tap])
+        reset()
+        t0 = time.perf_counter()
+        out = sched.sort(data, m, exchange=exchange)
+        wall = (time.perf_counter() - t0) * 1e3
+        after = counts()
+        if not same_bits(out, reference):
+            raise AssertionError(f"{label}: output differs from numpy")
+        types = m.journal.types()
+        before = tap.at[-1] if tap.at else {k: 0 for k in after}
+        rerun = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+        log(f"fault {label}: equal to numpy, {wall:.1f} ms wall, live "
+            f"{sched.table.live_workers()}, counters {dict(m.counters)}")
+        if tap.at:
+            log(f"  launches before the last re-form {({k: v for k, v in before.items() if v})}, "
+                f"re-run on {len(sched.table.live_workers())} shards {rerun}")
+        else:
+            log(f"  launches (no re-form; an abandoned attempt's included) {rerun}")
+        return m, types, rerun
+
+    def in_order(label, types, *names):
+        """``names`` occur in ``types`` in this order (each after the last)."""
+        pos = -1
+        for n in names:
+            if n not in types[pos + 1:]:
+                raise AssertionError(f"{label}: no {n} after {names[:names.index(n)]}: {types}")
+            pos = types.index(n, pos + 1)
+
+    # 6.1 healthy: the scheduler around the same sort, in turns (A B B A).
+    sched = SpmdScheduler(8, injector=FaultInjector())
+    reset()
+    if not same_bits(sched.sort(x32), ref32):
+        raise AssertionError("SpmdScheduler healthy 2^26: output differs from numpy")
+    log(f"fault healthy SpmdScheduler(8).sort uniform int32 n=2^26: equal to numpy, launches "
+        f"{launched('SpmdScheduler healthy', keys_path)}")
+    turns = []
+    for name in ("SampleSort", "SpmdScheduler", "SpmdScheduler", "SampleSort"):
+        run = ss.sort if name == "SampleSort" else sched.sort
+        turns += [(name, t) for t in host_times(lambda: run(x32), 2)]
+    med = {}
+    for name in ("SampleSort", "SpmdScheduler"):
+        ts = [t for k, t in turns if k == name]
+        med[name] = float(np.median(ts))
+        log(f"time {name} int32 n=2^26 alltoall host-to-host: {med[name]:.3f} ms median of "
+            f"{len(ts)} (runs {[round(t, 3) for t in ts]}) [{card}]")
+    log(f"time scheduler overhead (SpmdScheduler - SampleSort medians): "
+        f"{med['SpmdScheduler'] - med['SampleSort']:.3f} ms [{card}]")
+
+    # 6.2 loss before dispatch: 7 survivors re-run the whole sort.
+    m, types, rerun = faulted("loss before dispatch (fail_once(2, 'spmd')) int32 n=2^26",
+                              sched, x32, ref32, lambda inj: inj.fail_once(2, "spmd"))
+    if m.counters["mesh_reforms"] != 1 or sched.table.live_workers() != [0, 1, 3, 4, 5, 6, 7]:
+        raise AssertionError(f"loss before dispatch: {dict(m.counters)}")
+    in_order("loss before dispatch", types, "job_start", "worker_dead", "mesh_reform",
+             "attempt_start", "job_done")
+    if types.count("attempt_start") != 2 or not all(rerun.get(k) for k in keys_path):
+        raise AssertionError(f"loss before dispatch: attempts {types}, re-run {rerun}")
+
+    # 6.3 cascading loss: 6 survivors.
+    m, types, rerun = faulted(
+        "cascading loss (fail_once(2), fail_once(5)) int32 n=2^26", sched, x32, ref32,
+        lambda inj: (inj.fail_once(2, "spmd"), inj.fail_once(5, "spmd")))
+    if m.counters["mesh_reforms"] != 2 or sched.table.live_workers() != [0, 1, 3, 4, 6, 7]:
+        raise AssertionError(f"cascading loss: {dict(m.counters)}")
+    if not all(rerun.get(k) for k in keys_path):
+        raise AssertionError(f"cascading loss: the 6-shard re-run launched {rerun}")
+
+    # 6.4 mid-ring loss: between the plan and the exchange, ring and fused.
+    ring_scheds = {}
+    for exchange in ("ring", "fused"):
+        rs = ring_scheds[exchange] = SpmdScheduler(
+            8, job=JobConfig(exchange=exchange), injector=FaultInjector())
+        rs.sort(z)  # warm
+        m, types, rerun = faulted(f"mid-ring loss (fail_once(3, 'ring')) zipf(1.3) int64 n=2^24 "
+                                  f"exchange={exchange}", rs, z, refz,
+                                  lambda inj: inj.fail_once(3, "ring"))
+        c = m.counters
+        want_plan = "fused_exchange_launch" if exchange == "fused" else "exchange_step"
+        if (c["mesh_reforms"] != 1 or c["exchange_ring_steps"] != 13
+                or rs.table.live_workers() != [0, 1, 2, 4, 5, 6, 7]
+                or want_plan not in types[types.index("mesh_reform"):]):
+            raise AssertionError(f"mid-ring loss {exchange}: {dict(c)} {types}")
+        if exchange == "fused" and (c["fused_exchange_launches"] != 2
+                                    or c["fused_exchange_steps"] != 13
+                                    or rerun.get("ring_exchange_kernel") != 1):
+            raise AssertionError(f"mid-ring loss fused: {dict(c)}, re-run launches {rerun}")
+
+    # 6.5 hangs, on a warmed bucket: waits lapse at 2.07 s of a 4 s hang.
+    hang_s = 4.0
+    hang_job = JobConfig(settle_delay_s=0.01, heartbeat_timeout_s=1.0, compile_grace_s=120.0,
+                         exec_allowance_floor_s=1.0, exec_allowance_keys_per_s=1e9,
+                         max_transient_retries=5)
+    hs = SpmdScheduler(8, job=hang_job, injector=FaultInjector())
+    hs.sort(x32)  # warm
+    t0 = time.monotonic()
+    m, types, _ = faulted(f"hang ({hang_s} s) with healthy probes int32 n=2^26", hs, x32, ref32,
+                          lambda inj: inj.hang_once(0, "spmd", hang_s))
+    c = m.counters
+    if (c["spmd_wait_timeouts"] < 1 or c["transient_retries"] < 1 or c.get("mesh_reforms")
+            or hs.table.live_workers() != list(range(8))):
+        raise AssertionError(f"hang with healthy probes: {dict(c)}")
+    lapse = m.journal.events()[types.index("heartbeat_lapse")].mono - t0
+    if lapse >= hang_s:
+        raise AssertionError(f"hang with healthy probes: detected at {lapse:.3f} s")
+    log(f"  detected at {lapse:.3f} s of the {hang_s} s hang; lane drained after "
+        f"{wait_idle(hs):.3f} s more")
+    t0 = time.monotonic()
+    m, types, rerun = faulted(
+        f"hang ({hang_s} s) + fail_once(3, 'probe') int32 n=2^26", hs, x32, ref32,
+        lambda inj: (inj.hang_once(0, "spmd", hang_s), inj.fail_once(3, "probe")))
+    done = time.monotonic() - t0
+    c = m.counters
+    if c["spmd_wait_timeouts"] != 1 or c["mesh_reforms"] != 1 or hs.table.is_alive(3):
+        raise AssertionError(f"hang + failed probe: {dict(c)}")
+    in_order("hang + failed probe", types, "heartbeat_lapse", "probe", "worker_dead",
+             "mesh_reform", "job_done")
+    if done >= hang_s:
+        raise AssertionError(f"hang + failed probe: done at {done:.3f} s, not before the hang ends")
+    log(f"  detected and recovered at {done:.3f} s of the {hang_s} s hang; the abandoned "
+        f"attempt drained after {wait_idle(hs):.3f} s more")
+
+    # 6.6 everyone dead: a clean JobFailedError within a bounded time.
+    dead = SpmdScheduler(8, injector=FaultInjector())
+    for i in range(8):
+        dead.injector.kill(i)
+    t0 = time.perf_counter()
+    try:
+        dead.sort(x32[: 1 << 20])
+        raise AssertionError("every worker dead: the job did not fail")
+    except JobFailedError as e:
+        took = time.perf_counter() - t0
+        if took > 10.0:
+            raise AssertionError(f"every worker dead: JobFailedError after {took:.1f} s")
+        log(f"fault every worker dead: JobFailedError ({e}) after {took * 1e3:.1f} ms")
+
+    # 6.7 the probe's round trip on the card.
+    probe_ms = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        if not sched._probe_device(0):
+            raise AssertionError("probe of a healthy worker failed")
+        probe_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"time probe round trip (8 int32 up and back on the worker's lane): "
+        f"{float(np.median(probe_ms)):.4f} ms median of 7 (runs "
+        f"{[round(t, 4) for t in probe_ms]}) [{card}]")
+
+    # 6.8 the classifier's status table against the runtime's own strings;
+    # then one real CUDA error, in a child process (the error is sticky).
+    from dsort_tpu_torch.ops.errors import CUDA_ERRORS
+
+    cudart = torch.cuda.cudart()
+    wrong = {code: cudart.cudaGetErrorString(cudart.cudaError(code))
+             for code, (_, text) in CUDA_ERRORS.items()
+             if cudart.cudaGetErrorString(cudart.cudaError(code)) != text}
+    if wrong:
+        raise AssertionError(f"CUDA_ERRORS texts differ from cudaGetErrorString: {wrong}")
+    log(f"fault CUDA_ERRORS: {len(CUDA_ERRORS)} codes, each text equal to cudaGetErrorString's")
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--real-error-child"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    try:
+        rep = json.loads(child.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        raise AssertionError(f"real-error child printed no report (rc {child.returncode}): "
+                             f"{child.stdout[-2000:]} {child.stderr[-2000:]}") from e
+    if (child.returncode != 3 or rep["classified"] is not None
+            or "device-side assert" not in rep["message"] or rep["counters"]
+            or rep["events"] != ["job_start", "attempt_start"] or len(rep["live"]) != 8):
+        raise AssertionError(f"real-error child: rc {child.returncode}, {rep}")
+    log(f"fault real device-side assert in a child: {rep['type']} (error_code "
+        f"{rep['error_code']}) classified as a program error, propagated with no probe or "
+        f"re-form, child exit {child.returncode} after {took:.1f} s")
+
+    # 6.9 time to recover: the faulted sort minus the healthy one, in turns
+    # (healthy, faulted, faulted, healthy).
+    def recover(label, sched, data, arm, reps, exchange=None):
+        turns = []
+        for kind in ("healthy", "faulted", "faulted", "healthy"):
+            for _ in range(reps):
+                if kind == "faulted":
+                    arm(sched.injector)
+                t0 = time.perf_counter()
+                sched.sort(data, exchange=exchange)
+                torch.cuda.synchronize()
+                turns.append((kind, (time.perf_counter() - t0) * 1e3))
+                wait_idle(sched)
+        med = {k: float(np.median([t for n, t in turns if n == k])) for k in ("healthy", "faulted")}
+        log(f"time to recover, {label}: {med['faulted'] - med['healthy']:.3f} ms (faulted "
+            f"{med['faulted']:.3f} - healthy {med['healthy']:.3f} ms, medians of {2 * reps}; runs "
+            f"{[(n[0], round(t, 3)) for n, t in turns]}) [{card}]")
+
+    recover("loss before dispatch, int32 n=2^26 alltoall (default JobConfig)", sched, x32,
+            lambda inj: inj.fail_once(2, "spmd"), 2)
+    recover("mid-ring loss, zipf(1.3) int64 n=2^24 ring (default JobConfig)", ring_scheds["ring"],
+            z, lambda inj: inj.fail_once(3, "ring"), 2)
+    recover(f"hang ({hang_s} s) + failed probe, int32 n=2^26 (waits of 2.07 s)", hs, x32,
+            lambda inj: (inj.hang_once(0, "spmd", hang_s), inj.fail_once(3, "probe")), 1)
 
 
 def main() -> int:
@@ -1139,6 +1428,9 @@ def main() -> int:
     log(f"traced tile_sort_kernel in cli run --kernel pallas 10^6 lines: {g_ms:.3f} ms over "
         f"{g_n} launches [{card}]")
 
+    # 6. the fault plane on the card ------------------------------------------
+    fault_plane(card, ss, x32, ref32, z, refz, reset, counts, launched, keys_path)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1148,4 +1440,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(real_error_child() if sys.argv[1:] == ["--real-error-child"] else main())

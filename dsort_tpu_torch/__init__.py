@@ -21,9 +21,14 @@ default SPMD mode):
   ops/pallas_sort.py   tile sort, stable key+index tile sort and radix
                        histogram over ``csrc/tile_sort.cu``; ``pallas_sort``
   ops/ring_kernel.py   the fused ring exchange over ``csrc/ring_exchange.cu``
+  ops/errors.py        ``KernelLaunchError`` and the CUDA status names
   parallel/mesh.py     ``VirtualMesh``: P shards as rows of one tensor
   parallel/exchange.py the ring schedule: measured caps, shifts, merge tower
   parallel/sample_sort.py  ``SampleSort`` (splitters, buckets, exchange, merge)
+  scheduler/           ``SpmdScheduler`` (bounded waits, probes, re-form over
+                       the survivors), ``FaultInjector``, ``WorkerTable``,
+                       the CUDA error classifier
+  utils/events.py      ``EventLog``: the JSONL event journal
   cli.py               ``python -m dsort_tpu_torch.cli {run,terasort} IN -o OUT``
 """
 

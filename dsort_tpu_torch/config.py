@@ -1,4 +1,5 @@
-"""Typed job configuration: the `JobConfig` fields the sample sort reads.
+"""Typed job configuration: the `JobConfig` fields the sample sort and the
+scheduler read.
 
 Counterpart of ``dsort_tpu/config.py``'s ``JobConfig``, cut to what the
 ported path reads.  Values the JAX package accepts but this package has not
@@ -57,7 +58,15 @@ class JobConfig:
       transpose with the measured-capacity retry), ``ring`` (P-1 shifts
       sized from the measured histogram, merged as they land) or
       ``fused`` (the same schedule as one exchange kernel plus one merge,
-      `ops.ring_kernel`); ``hier`` is not ported yet.
+      `ops.ring_kernel`); ``hier`` is not ported yet;
+    - the fault plane (`scheduler.SpmdScheduler`), with the reference's
+      defaults: ``settle_delay_s`` between a failure and the re-run;
+      ``heartbeat_timeout_s`` bounds a liveness probe; a whole attempt's
+      wait is bounded by ``heartbeat_timeout_s + exec_allowance_floor_s +
+      n_keys / exec_allowance_keys_per_s``, plus ``compile_grace_s`` while
+      its (mesh, size bucket) has not completed once (the first launch
+      builds the kernels); ``max_transient_retries`` bounds the re-runs
+      after a lapsed wait or a runtime error with every probe healthy.
     """
 
     local_kernel: str = "auto"
@@ -66,6 +75,12 @@ class JobConfig:
     oversample: int = 32
     capacity_factor: float = 1.3
     max_capacity_retries: int = 3
+    settle_delay_s: float = 0.1
+    heartbeat_timeout_s: float = 10.0
+    compile_grace_s: float = 240.0
+    max_transient_retries: int = 2
+    exec_allowance_floor_s: float = 30.0
+    exec_allowance_keys_per_s: float = 1e6
 
     def __post_init__(self) -> None:
         _check_choice("local_kernel", self.local_kernel, _LOCAL_KERNELS, _LOCAL_PORTED)
@@ -82,6 +97,19 @@ class JobConfig:
                 "max_capacity_retries must be >= 0, got "
                 f"{self.max_capacity_retries}"
             )
+        if self.max_transient_retries < 0:
+            raise ConfigError(
+                f"max_transient_retries must be >= 0, got {self.max_transient_retries}"
+            )
+        if self.exec_allowance_floor_s < 0:
+            raise ConfigError(
+                f"exec_allowance_floor_s must be >= 0, got {self.exec_allowance_floor_s}"
+            )
+        if self.exec_allowance_keys_per_s <= 0:
+            raise ConfigError(
+                "exec_allowance_keys_per_s must be > 0, got "
+                f"{self.exec_allowance_keys_per_s}"
+            )
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "JobConfig":
@@ -91,24 +119,31 @@ class JobConfig:
 
         Read: ``local_kernel``, ``merge_kernel``, ``exchange`` (``alltoall``,
         ``ring`` or ``fused``), ``oversample``, ``capacity_factor``,
-        ``max_capacity_retries``.
+        ``max_capacity_retries``, ``settle_delay_s``,
+        ``heartbeat_timeout_s``, ``compile_grace_s``,
+        ``max_transient_retries``, ``exec_allowance_floor_s``,
+        ``exec_allowance_keys_per_s``.
 
         Ignored (not read by the ported path yet): ``key_dtype`` (the input
         array's dtype decides), ``payload_bytes`` (the payload array's row
-        decides), ``hier_hosts``,
-        ``redundancy_mode``, ``max_reassign_attempts``, ``settle_delay_s``,
-        ``heartbeat_timeout_s``, ``compile_grace_s``,
-        ``max_transient_retries``, ``exec_allowance_floor_s``,
-        ``exec_allowance_keys_per_s``, ``checkpoint_dir``, ``tenant``,
+        decides), ``hier_hosts``, ``redundancy_mode``,
+        ``max_reassign_attempts`` (the task-pool scheduler's), ``tenant``,
         ``flight_recorder_dir``, ``flight_ring_size``, ``explicit``.
 
-        Refused (they would change the reference's schedule): ``redundancy``
-        above 1 (the coded ring exchange) and ``autotune`` (the planner).
+        Refused (they would change the reference's schedule or guarantees):
+        ``redundancy`` above 1 (the coded ring exchange), ``autotune`` (the
+        planner) and a ``checkpoint_dir`` (resumable jobs: a user who asked
+        for them must not get a silent non-resumable run).
         """
         if int(d.get("redundancy", 1)) != 1:
             raise ConfigError(
                 "redundancy > 1 (the coded ring exchange) is not yet ported "
                 "to dsort_tpu_torch"
+            )
+        if d.get("checkpoint_dir") is not None:
+            raise ConfigError(
+                "checkpoint_dir (resumable jobs) is not yet ported to "
+                "dsort_tpu_torch"
             )
         if d.get("autotune", False):
             raise ConfigError(

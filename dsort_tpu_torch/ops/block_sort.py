@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import torch
 
+from dsort_tpu_torch.ops.errors import KernelLaunchError
 from dsort_tpu_torch.ops.float_order import from_signed_keys, to_signed_keys
 from dsort_tpu_torch.ops.local_sort import sentinel_for
 
@@ -195,7 +196,7 @@ def _launch(name: str, x: torch.Tensor, r: torch.Tensor | None, *args) -> None:
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), rp, x.shape[0], x.shape[1], *args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError(name, err)
     _LAUNCHES[f"{name}_kernel" + ("" if r is None else RANK)] += 1
 
 

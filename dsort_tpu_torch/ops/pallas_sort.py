@@ -41,6 +41,7 @@ import torch
 from dsort_tpu_torch.ops.bitonic import merge_sorted_runs, merge_sorted_runs_kv
 from dsort_tpu_torch.ops.block_sort import _KERNEL_DTYPES, _as_rows, _ceil_pow2
 from dsort_tpu_torch.ops.block_sort import tile_sort_plain as _levels_plain
+from dsort_tpu_torch.ops.errors import KernelLaunchError
 from dsort_tpu_torch.ops.float_order import _UNSIGNED_TO_SIGNED, from_signed_keys, to_signed_keys
 from dsort_tpu_torch.ops.local_sort import _apply_perm, sentinel_for
 
@@ -181,7 +182,7 @@ def tile_sort(x: torch.Tensor, tile_rows: int = 256) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"tile_sort kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError("tile_sort", err)
     _LAUNCHES["tile_sort_kernel"] += 1
     return x
 
@@ -208,7 +209,7 @@ def tile_sort_kv(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"tile_sort_kv kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError("tile_sort_kv", err)
     _LAUNCHES["tile_sort_kv_kernel"] += 1
     return x, v
 
@@ -236,7 +237,7 @@ def radix_histogram(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"radix_histogram kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError("radix_histogram", err)
     _LAUNCHES["radix_histogram_kernel"] += 1
     return out
 

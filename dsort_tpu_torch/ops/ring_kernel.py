@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from dsort_tpu_torch.ops.errors import KernelLaunchError
 from dsort_tpu_torch.ops.local_sort import sentinel_for
 
 #: Transfer dispatches per fused exchange: the whole P-1-step ring is one
@@ -235,7 +236,7 @@ def ring_exchange(xs, starts, lens, caps, payload=None):
             host_caps, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"ring_exchange kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError("ring_exchange", err)
     _LAUNCHES["ring_exchange_kernel" + ("" if payload is None else "+kv")] += 1
     return wk, wt, wv
 
@@ -260,7 +261,7 @@ def gather_rows(ws: torch.Tensor, tags: torch.Tensor) -> torch.Tensor:
             tags.stride(0), ws.shape[2], torch.cuda.current_stream(ws.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {err}")
+        raise KernelLaunchError("gather_rows", err)
     _LAUNCHES["gather_rows_kernel"] += 1
     return out
 

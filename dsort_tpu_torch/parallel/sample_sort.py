@@ -318,6 +318,10 @@ class SampleSort:
         self.mesh = mesh
         self.job = job or JobConfig()
         self.num_workers = mesh.num_workers
+        #: Called between the ring plan and the exchange (``ring`` and
+        #: ``fused``, keys and records): the scheduler's mid-ring injection
+        #: point, where a lost worker invalidates a planned exchange.
+        self.fault_hook = None
 
     def _resolve_exchange(self, exchange: str | None) -> str:
         exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)
@@ -462,6 +466,8 @@ class SampleSort:
                 kernel=self.job.local_kernel,
             )
             caps = self._plan_caps(hist, n_local, data.dtype.itemsize, metrics, fused)
+        if self.fault_hook is not None:
+            self.fault_hook()
         kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
         with timer.phase("spmd_sort"):
             if fused:
@@ -588,6 +594,8 @@ class SampleSort:
                 xs, vs, cj, mesh=self.mesh, oversample=self.job.oversample
             )
             caps = self._plan_caps(hist, n_local, slot_bytes, metrics, fused)
+        if self.fault_hook is not None:
+            self.fault_hook()
         kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
         with timer.phase("spmd_sort"):
             if fused:

@@ -1,0 +1,135 @@
+"""Structured per-job event journal: `Event` and `EventLog`.
+
+Counterpart of ``dsort_tpu/utils/events.py``'s journal: a thread-safe log of
+typed, monotonic-timestamped records that a `Metrics` fans its events into
+(``Metrics(journal=EventLog())``), persisted as JSONL in the reference's
+record format (``seq``, ``t``, ``mono``, ``type``, then the fields) — the
+``--journal`` artifact of ``cli run``.  Rotation, the Chrome-trace export
+and the human report are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import threading
+import time
+
+#: The event types this package emits, with the reference's descriptions.
+#: `EventLog.emit` refuses any other type, so the journal's schema stays
+#: documented here rather than drifting site by site.
+EVENT_TYPES: dict[str, str] = {
+    "job_start": "a sort job entered a scheduler (n_keys, mode)",
+    "job_done": "the job completed (n_keys)",
+    "job_failed": "the job failed cleanly (reason)",
+    "attempt_start": "one execution attempt began (worker/live, shard)",
+    "heartbeat_lapse": "a bounded wait lapsed — possible hang (worker/kind)",
+    "probe": "a liveness probe ran on one device (worker, ok)",
+    "worker_dead": "a worker/device was declared dead (worker, stage)",
+    "mesh_reform": "the SPMD mesh re-formed over survivors (survivors)",
+    "capacity_retry": "an all_to_all bucket overflowed; retry resized "
+                      "(observed, cap_pair)",
+    "transient_retry": "a transient runtime error retried in place (worker)",
+    "phase_start": "a timed phase opened (phase)",
+    "phase_end": "a timed phase closed (phase, seconds)",
+    "exchange_step": "one ring exchange step was planned with its measured "
+                     "capacity (step, cap, bytes)",
+    "exchange_resize": "a ring step's adaptive capacity exceeded the static "
+                       "policy allocation — the per-step successor of the "
+                       "whole-job capacity retry (step, cap, policy_cap)",
+    "result_fetch": "a sorted result crossed device->host (n_keys) — the "
+                    "'fetched' stage boundary of the SLO histograms",
+    "skew_report": "the ring plan's measured bucket histogram, reduced "
+                   "(max_mean_ratio, send/recv device loads, predicted "
+                   "imbalance) — the skew signal the analyzer reads",
+    "fused_exchange_launch": "one fused ring kernel launch replaced the "
+                             "P-1 per-step collective dispatches (steps, "
+                             "dispatches, dispatches_replaced, total_cap)",
+    "fused_exchange_step": "one planned in-kernel step of the fused ring "
+                           "(step, cap, bytes) — the fused twin of "
+                           "exchange_step",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Event:
+    """One journal record.  ``t`` is wall-clock (cross-process mergeable);
+    ``mono`` is ``time.monotonic()`` (in-process ordering and durations);
+    ``seq`` is the per-log append index (total order even at equal clocks)."""
+
+    seq: int
+    t: float
+    mono: float
+    type: str
+    fields: dict
+
+    def to_dict(self) -> dict:
+        return {
+            "seq": self.seq,
+            "t": round(self.t, 6),
+            "mono": round(self.mono, 6),
+            "type": self.type,
+            **self.fields,
+        }
+
+
+class EventLog:
+    """Thread-safe, append-only journal of typed events for one job or a run of jobs."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._events: list[Event] = []
+        self._flushed = 0  # events already written by flush_jsonl
+
+    def emit(self, etype: str, **fields) -> Event:
+        if etype not in EVENT_TYPES:
+            raise ValueError(
+                f"unregistered event type {etype!r}; add it to "
+                "dsort_tpu_torch.utils.events.EVENT_TYPES"
+            )
+        t, mono = time.time(), time.monotonic()
+        with self._lock:
+            ev = Event(len(self._events), t, mono, etype, fields)
+            self._events.append(ev)
+        return ev
+
+    def events(self) -> list[Event]:
+        with self._lock:
+            return list(self._events)
+
+    def types(self) -> list[str]:
+        """Event types in append order — the sequence tests assert on."""
+        return [e.type for e in self.events()]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._events)
+
+    def write_jsonl(self, path: str) -> None:
+        """One JSON object per line — the ``--journal`` artifact format."""
+        with open(path, "w", encoding="utf-8") as f:
+            for e in self.events():
+                f.write(json.dumps(e.to_dict()) + "\n")
+
+    def flush_jsonl(self, path: str) -> None:
+        """Write only the events not yet flushed, truncating on the FIRST
+        flush so a stale file never mixes runs: IO per job stays
+        O(new events), not O(all events)."""
+        with self._lock:
+            events = list(self._events)
+            start = self._flushed
+            self._flushed = len(events)
+        if start == 0 or events[start:]:
+            with open(path, "w" if start == 0 else "a", encoding="utf-8") as f:
+                for e in events[start:]:
+                    f.write(json.dumps(e.to_dict()) + "\n")
+
+    @staticmethod
+    def read_jsonl(path: str) -> list[dict]:
+        out = []
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    out.append(json.loads(line))
+        return out

@@ -429,3 +429,105 @@ def test_pallas_sample_sort_on_cuda(cuda, exchange):
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(ok.cpu().numpy(), keys[order])
     np.testing.assert_array_equal(ov.cpu().numpy(), rows[order])
+
+
+# -- the fault plane on the card ----------------------------------------------
+
+_DRILL = dict(settle_delay_s=0.01, heartbeat_timeout_s=5.0)
+
+
+def _drill(cuda, injector=None, **job):
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.scheduler import SpmdScheduler
+
+    return SpmdScheduler(8, cuda, JobConfig(**{**_DRILL, **job}), injector)
+
+
+@pytest.mark.cuda
+def test_scheduler_loss_before_dispatch_on_cuda(cuda):
+    """A worker lost before dispatch: the 7 survivors re-run on the card's
+    kernels and return numpy's bits."""
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    inj = FaultInjector()
+    inj.fail_once(2, "spmd")
+    sched = _drill(cuda, inj)
+    x = _keys(np.random.default_rng(40), 1 << 20, np.int32)
+    m = Metrics()
+    tb.reset_launch_counts()
+    np.testing.assert_array_equal(sched.sort(x, m), np.sort(x))
+    assert m.counters["mesh_reforms"] == 1
+    assert sched.table.live_workers() == [0, 1, 3, 4, 5, 6, 7]
+    counts = tb.launch_counts()
+    assert all(counts[name] for name in tb.WRAPPERS), counts
+
+
+@pytest.mark.cuda
+def test_scheduler_mid_ring_loss_fused_on_cuda(cuda):
+    """A worker lost between the fused plan and its exchange: one exchange
+    launch (the re-run's), two plans, 7 + 6 steps."""
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    inj = FaultInjector()
+    sched = _drill(cuda, inj, exchange="fused")
+    z = np.minimum(np.random.default_rng(41).zipf(1.3, 1 << 20), 2**62).astype(np.int64)
+    inj.fail_once(3, "ring")
+    m = Metrics()
+    rk.reset_launch_counts()
+    np.testing.assert_array_equal(sched.sort(z, m), np.sort(z))
+    assert m.counters["mesh_reforms"] == 1
+    assert m.counters["fused_exchange_launches"] == 2
+    assert m.counters["exchange_ring_steps"] == 13
+    assert rk.launch_counts()["ring_exchange_kernel"] == 1
+
+
+@pytest.mark.cuda
+def test_scheduler_hang_and_failed_probe_on_cuda(cuda):
+    """A hung attempt (warm bucket) is detected long before the hang ends;
+    worker 3 fails its probe and the job completes on the other 7."""
+    import time
+
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    inj = FaultInjector()
+    sched = _drill(cuda, inj, heartbeat_timeout_s=0.5, compile_grace_s=60.0,
+                   exec_allowance_floor_s=0.5, exec_allowance_keys_per_s=1e9,
+                   max_transient_retries=5)
+    x = _keys(np.random.default_rng(42), 1 << 20, np.int32)
+    np.testing.assert_array_equal(sched.sort(x), np.sort(x))  # warm
+    inj.hang_once(0, "spmd", seconds=4.0)
+    inj.fail_once(3, "probe")
+    m = Metrics()
+    t0 = time.monotonic()
+    out = sched.sort(x, m)
+    took = time.monotonic() - t0
+    np.testing.assert_array_equal(out, np.sort(x))
+    assert took < 4.0, took
+    assert m.counters["spmd_wait_timeouts"] == 1 and m.counters["mesh_reforms"] == 1
+    assert not sched.table.is_alive(3)
+    deadline = time.monotonic() + 30
+    while sched.lane_stuck_for("spmd") > 0:  # drain the abandoned attempt
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+
+
+@pytest.mark.cuda
+def test_probe_round_trip_and_refused_launch_on_cuda(cuda):
+    """The probe is a real round trip to the card; a shape the C entry
+    refuses raises `KernelLaunchError` (cudaErrorInvalidValue), which the
+    classifier calls a program error."""
+    from dsort_tpu_torch.ops.errors import KernelLaunchError
+    from dsort_tpu_torch.scheduler.fault import classify_runtime_error
+
+    sched = _drill(cuda)
+    assert all(sched._probe_device(i) for i in range(8))
+    x = torch.zeros((2, 2048), dtype=torch.int32, device=cuda)
+    tb.reset_launch_counts()
+    with pytest.raises(KernelLaunchError) as e:
+        tb._launch("bitonic_global_stage", x, None, 1024, 1024, 1)  # 2 j > k
+    assert (e.value.code, e.value.name) == (1, "cudaErrorInvalidValue")
+    assert classify_runtime_error(e.value) is None
+    assert tb.launch_counts()["bitonic_global_stage_kernel"] == 0
