@@ -33,7 +33,8 @@ Phases (any failure raises, so the exit code is non-zero):
    ``SampleSort(VirtualMesh(8)).sort`` under the default ``alltoall`` at
    2^26 uniform int32, 2^24 zipf int64 (must take the capacity retry) and
    2^20 float32 with NaN/±0.0/±inf, and ``cli run`` on a 10^6-line file
-   (through ``SpmdScheduler``, as ``dsort run`` in its default mode);
+   (under 2^20 keys: the fused route, one padded row of 2^20 through the
+   block kernels and no exchange, as ``dsort run`` in its default mode);
    the same sort under ``ring`` and ``fused`` at 2^26 int32 and 2^24 zipf
    int64 (no capacity retry, one exchange launch per fused sort);
    ``sort_kv`` of 2^23 TeraSort records under all three exchanges, 2^22
@@ -71,7 +72,22 @@ Phases (any failure raises, so the exit code is non-zero):
    error: it propagates with no probe or re-form); the time to recover from
    a loss before dispatch, a mid-ring loss and a hang, faulted minus healthy
    in turns.  Every output is checked against numpy, every counter and
-   journal order asserted, and the re-runs' launch counts printed.
+   journal order asserted, and the re-runs' launch counts printed;
+7. the small-job route and the task pool (`small_jobs_and_taskpool`): the
+   block kernels and S1 on one row of 2^16 and 2^20 keys against their
+   plain versions (every S of the global stage the row allows), and
+   ``block_sort`` / ``pallas_sort`` of one row at every fused rung from
+   2^16 to 2^20 against torch.sort; ``fused_sort_small`` at 2^16, 2^17 + 3
+   and 2^20 − 1 (int32, int64, uint32), 2^20 − 1 float32 with NaN/±0/±inf
+   and under ``pallas``, none of the block kernels below a 2^16-key rung;
+   ``GatherMergeSort`` at 2^24; ``cli run`` on 2^21 lines (through
+   ``SpmdScheduler``) and ``--mode local`` / ``--mode taskpool`` on phase
+   4's file; a fallback drill (a CUDA-named device error on the fused
+   route); the task pool at 2^24 int32 — healthy, a worker killed before
+   dispatch, a ``recv`` failure, a 3 s hang detected at the 1 s wait, every
+   worker dead; host-to-host medians in turns of the fused route against
+   ``SpmdScheduler.sort`` at 2^14, 2^17 and 2^20 − 1 and of the task pool
+   against it at 2^24; the task pool's time to recover per drill.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -576,6 +592,346 @@ def fault_plane(card, ss, x32, ref32, z, refz, reset, counts, launched, keys_pat
             lambda inj: (inj.hang_once(0, "spmd", hang_s), inj.fail_once(3, "probe")), 1)
 
 
+def pool_lanes_idle(dev, workers, limit_s: float = 60.0) -> float:
+    """Wait until the task pool's attempt lanes of ``workers`` are idle (an
+    attempt abandoned by a lapsed wait runs on to its end there).  Returns
+    the seconds waited."""
+    from dsort_tpu_torch.scheduler.scheduler import _lane_for_device
+
+    lanes = [_lane_for_device(dev, w) for w in workers]
+    t0 = time.monotonic()
+    while any(lane.stuck_for() > 0 or not lane._q.empty() for lane in lanes):
+        if time.monotonic() - t0 > limit_s:
+            raise AssertionError(f"task-pool lanes {workers} still busy after {limit_s} s")
+        time.sleep(0.01)
+    return time.monotonic() - t0
+
+
+def rungs_between(lo: int, hi: int) -> list[int]:
+    """Every `pad_rung` value from ``lo`` to ``hi`` (powers of two): 8 a
+    size octave."""
+    out = []
+    while lo < hi:
+        out += [lo + i * (lo >> 3) for i in range(8)]
+        lo *= 2
+    return out + [hi]
+
+
+def small_jobs_and_taskpool(card, hold, reset, counts, launched, keys_path, src, want_bytes,
+                            work, pool_n: int = 1 << 24, cli_n: int = 1 << 21) -> None:
+    """Phase 7: the fused small-job route, ``cli run --mode``, the task pool
+    and the gather-merge sort on the card.  The block kernels and S1 at
+    one-row shapes against their plain versions and `torch.sort`; fused jobs
+    and the routes of ``cli run`` with their launches; a fallback drill; the
+    task pool's drills at ``pool_n`` int32 keys; host-to-host medians in
+    turns.  ``src`` is phase 4's 10^6-line file and ``want_bytes`` its
+    `sort -n` order; ``cli_n`` lines go through the scheduler."""
+    from dsort_tpu_torch import cli
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.device import resolve_device
+    from dsort_tpu_torch.models import pipelines as pl
+    from dsort_tpu_torch.ops import block_sort as tb
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.scheduler import (
+        DeviceExecutor, FaultInjector, JobFailedError, Scheduler, SpmdScheduler,
+    )
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    dev = resolve_device()
+    rng = np.random.default_rng(17)
+    T = tb.TILE
+
+    # 7.1 one-row grids: each kernel against its plain version at a row of
+    # 2^16 and of 2^20 keys (16 and 256 block tiles, 2 and 32 S1 tiles).
+    for dtype in (np.int32, np.int64):
+        for n in (1 << 16, 1 << 20):
+            x = torch.from_numpy(random_keys(rng, (1, n), dtype)).to(dev)
+            label = f"{np.dtype(dtype).name} 1x{n}"
+            hold("bitonic_tile_kernel", f"{label} k_start=2", lambda: (tb.bitonic_tile(x.clone(), T),),
+                 lambda: (tb.tile_sort_plain(x.clone(), T),))
+            for k in (n, 2 * T):
+                hold("bitonic_tile_merge_kernel", f"{label} k={k}",
+                     lambda: (tb.bitonic_tile_merge(x.clone(), T, k),),
+                     lambda: (tb.tile_merge_plain(x.clone(), T, k),))
+            for st in range(1, tb.STAGES_MAX[(x.dtype, False)] + 1):
+                j_bot = T << (st - 1)
+                for k, j in ((n, n // 2), (2 * j_bot, j_bot)):
+                    if k > n or (j >> (st - 1)) < T:
+                        continue
+                    hold("bitonic_global_stage_kernel", f"{label} S={st} k={k} j={j}..{j >> (st - 1)}",
+                         lambda: (tb.bitonic_global_stage(x.clone(), k, j, stages=st),),
+                         lambda: (tb.global_stage_plain(x.clone(), k, j, stages=st),))
+            hold("tile_sort_kernel", f"{label} tile_rows=256 ({n // (256 * ps.LANES)} tiles of "
+                 f"{ps.tile_sort_cluster_size(256, x.dtype)} CTAs)",
+                 lambda: (ps.tile_sort(x.clone(), 256),), lambda: (ps.tile_sort_plain(x.clone(), 256),))
+            del x
+    # block_sort and pallas_sort of one row at every fused rung from 2^16 to
+    # 2^20, against torch.sort.
+    rungs = rungs_between(1 << 16, 1 << 20)
+    for dtype in (np.int32, np.int64):
+        for n in rungs:
+            x = torch.from_numpy(random_keys(rng, (1, n), dtype)).to(dev)
+            want = torch.sort(x).values
+            if not (torch.equal(tb.block_sort(x), want) and torch.equal(ps.pallas_sort(x), want)):
+                raise AssertionError(f"one-row sort {np.dtype(dtype).name} 1x{n} differs from torch.sort")
+    torch.cuda.synchronize()
+    log(f"small block_sort and pallas_sort of one row at every fused rung 2^16..2^20 ({len(rungs)} "
+        f"rungs, int32 and int64): equal to torch.sort")
+
+    # 7.2 fused jobs: one row through K1, K2 and the tile merge (auto), S1
+    # (pallas); below a 2^16-key rung auto is torch.sort.
+    fused_launches = {}
+    for n in (1 << 16, (1 << 17) + 3, (1 << 20) - 1):
+        for dtype in (np.int32, np.int64, np.uint32):
+            x = random_keys(rng, n, dtype)
+            reset()
+            t0 = time.perf_counter()
+            out = pl.fused_sort_small(x)
+            wall = time.perf_counter() - t0
+            got = launched(f"fused_sort_small {np.dtype(dtype).name} n={n}", keys_path)
+            if not same_bits(out, np.sort(x)):
+                raise AssertionError(f"fused_sort_small {np.dtype(dtype).name} n={n}: differs")
+            log(f"small fused_sort_small {np.dtype(dtype).name} n={n} (rung {pl.pad_rung(n)}): "
+                f"equal to numpy, {wall * 1e3:.3f} ms wall, launches {got}")
+            if n == (1 << 20) - 1 and dtype == np.int32:
+                fused_launches = got
+    f = (rng.standard_normal((1 << 20) - 1) * 1e3).astype(np.float32)
+    specials = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-45, -1e-45], np.float32)
+    f[rng.choice(f.size, 4096, replace=False)] = np.resize(specials, 4096)
+    reset()
+    out = pl.fused_sort_small(f)
+    got = launched("fused_sort_small float32", keys_path)
+    if not same_bits(out, ordered_float_reference(f)):
+        raise AssertionError("fused_sort_small float32 with NaN/±0/±inf: differs")
+    log(f"small fused_sort_small float32 with NaN/±0/±inf n={f.size}: the ordered float "
+        f"reference's bits, launches {got}")
+    x = random_keys(rng, (1 << 20) - 1, np.int32)
+    reset()
+    out = pl.fused_sort_small(x, "pallas")
+    got = launched("fused_sort_small pallas", {"tile_sort_kernel"})
+    if not same_bits(out, np.sort(x)) or got["tile_sort_kernel"] != 1:
+        raise AssertionError(f"fused_sort_small pallas: bits or launches {got}")
+    log(f"small fused_sort_small int32 n={x.size} kernel=pallas: equal to numpy, launches {got}")
+    for n in (1 << 14, (1 << 15) + 1):
+        x = random_keys(rng, n, np.int32)
+        reset()
+        out = pl.fused_sort_small(x)
+        got = {k: v for k, v in counts().items() if v}
+        if got or not same_bits(out, np.sort(x)):
+            raise AssertionError(f"fused_sort_small n={n} (rung {pl.pad_rung(n)}): launches {got}")
+        log(f"small fused_sort_small int32 n={n} (rung {pl.pad_rung(n)} < 2^16): equal to numpy, "
+            "no kernel launched (auto is torch.sort)")
+    # The gather-merge sort: one batched block sort of the 8 rows.
+    x = random_keys(rng, pool_n, np.int32)
+    reset()
+    t0 = time.perf_counter()
+    out = pl.GatherMergeSort(VirtualMesh(P)).sort(x)
+    wall = time.perf_counter() - t0
+    got = launched("GatherMergeSort", keys_path)
+    if not same_bits(out, np.sort(x)):
+        raise AssertionError(f"GatherMergeSort n={pool_n}: differs from numpy")
+    log(f"small GatherMergeSort(VirtualMesh(8)) int32 n={pool_n}: equal to numpy, {wall * 1e3:.1f} ms "
+        f"wall, launches {got}")
+
+    # 7.3 cli run routes: cli_n (>= 2^20) lines through the scheduler; --mode local and
+    # taskpool on phase 4's 10^6 lines.
+    def cli_run(label, path, want, argv, need):
+        dst, jpath = work / "out7.txt", work / "journal7.jsonl"
+        reset()
+        t0 = time.perf_counter()
+        if cli.main(["run", str(path), "-o", str(dst), "--journal", str(jpath), *argv]) != 0:
+            raise AssertionError(f"{label} failed")
+        wall = time.perf_counter() - t0
+        got = launched(label, need)
+        if dst.read_bytes() != want:
+            raise AssertionError(f"{label}: output differs from sort -n order")
+        recs = EventLog.read_jsonl(str(jpath))
+        log(f"small {label}: byte-identical, {wall * 1e3:.1f} ms wall, job_start mode "
+            f"{recs[0]['mode']}, counters {recs[-2].get('counters')}, launches {got}")
+        return recs
+
+    x21 = random_keys(rng, cli_n, np.int32)
+    src21 = work / "input21.txt"
+    src21.write_text("".join(f"{v}\n" for v in x21.tolist()))
+    recs = cli_run(f"cli run {cli_n} lines", src21,
+                   "".join(f"{v}\n" for v in np.sort(x21).tolist()).encode(), [], keys_path)
+    if recs[0]["mode"] != "spmd" or "attempt_start" not in [r["type"] for r in recs]:
+        raise AssertionError(f"cli run {cli_n} lines did not go through SpmdScheduler")
+    for mode in ("local", "taskpool"):
+        recs = cli_run(f"cli run --mode {mode} 10^6 lines", src, want_bytes, ["--mode", mode],
+                       keys_path)
+        if recs[0]["mode"] != mode:
+            raise AssertionError(f"cli run --mode {mode}: job_start mode {recs[0]['mode']}")
+
+    # 7.4 fallback drill: the fused route raises a CUDA-named device error;
+    # the job falls back to SpmdScheduler and returns numpy's bits.
+    real = pl.fused_sort_small
+
+    def dying(*args, **kwargs):
+        raise RuntimeError("CUDA error: unspecified launch failure")
+
+    x = random_keys(rng, 1 << 19, np.int32)
+    pl.fused_sort_small = dying
+    try:
+        sorter = cli._make_sorter(JobConfig(settle_delay_s=0.01), "spmd")
+        m = Metrics(journal=EventLog())
+        reset()
+        out = sorter(x, m)
+    finally:
+        pl.fused_sort_small = real
+    got = launched("fused fallback", keys_path)
+    types = m.journal.types()
+    if (not same_bits(out, np.sort(x)) or m.counters.get("fused_fallbacks") != 1
+            or "fused_small_jobs" in m.counters or "fused_fallback" not in types):
+        raise AssertionError(f"fused fallback drill: {dict(m.counters)} {types}")
+    log(f"small fused fallback drill (CUDA-named device error) int32 n=2^19: equal to numpy, "
+        f"counters {dict(m.counters)}, scheduler launches {got}")
+
+    # 7.5 the task pool at pool_n int32, 8 workers: 8 one-row block sorts a
+    # job (shards of pool_n / 8 keys), against SampleSort's one batched sort.
+    x24 = random_keys(rng, pool_n, np.int32)
+    ref24 = np.sort(x24)
+    pool = Scheduler(DeviceExecutor(P, injector=FaultInjector()),
+                     JobConfig(heartbeat_timeout_s=1.0, compile_grace_s=120.0))
+    inj = pool.executor.injector
+
+    def pool_job(label, arm=None, disarm=None):
+        if arm is not None:
+            arm(inj)
+        m = Metrics(journal=EventLog())
+        reset()
+        t0 = time.perf_counter()
+        try:
+            out = pool.run_job(x24, m)
+        finally:
+            if disarm is not None:
+                disarm(inj)
+        wall = time.perf_counter() - t0
+        got = launched(f"task pool {label}", keys_path)
+        if not same_bits(out, ref24):
+            raise AssertionError(f"task pool {label}: differs from numpy")
+        dead = [w for w in range(P) if not pool.table.is_alive(w)]
+        log(f"pool {label} int32 n={pool_n}: equal to numpy, {wall * 1e3:.1f} ms wall, dead {dead}, "
+            f"counters {dict(m.counters)}, launches {got}")
+        return m, dead, got
+
+    m, dead, pool_launches = pool_job("healthy")
+    if dead or pool_launches["bitonic_tile_kernel"] != P:
+        raise AssertionError(f"task pool healthy: dead {dead}, launches {pool_launches}")
+    m, dead, _ = pool_job("worker 3 killed before dispatch", lambda i: i.kill(3),
+                          lambda i: i.revive(3))
+    if dead != [3] or m.counters["reassignments"] != 1:
+        raise AssertionError(f"task pool kill: dead {dead}, {dict(m.counters)}")
+    m, dead, _ = pool_job("fail_once(2, 'recv')", lambda i: i.fail_once(2, "recv"))
+    if dead != [2] or m.counters["reassignments"] != 1:
+        raise AssertionError(f"task pool recv: dead {dead}, {dict(m.counters)}")
+    hang_s = 3.0
+    t0 = time.monotonic()
+    m, dead, _ = pool_job(f"hang ({hang_s} s) of worker 0 at sort",
+                          lambda i: i.hang_once(0, "sort", hang_s))
+    done = time.monotonic() - t0
+    if dead != [0] or m.counters["heartbeat_timeouts"] != 1 or done >= hang_s:
+        raise AssertionError(f"task pool hang: dead {dead}, {dict(m.counters)}, done at {done:.3f}")
+    lapse = [e for e in m.journal.events() if e.type == "heartbeat_lapse"][0].mono - t0
+    log(f"  hang detected at {lapse:.3f} s (heartbeat wait 1.0 s), job done at {done:.3f} s of the "
+        f"{hang_s} s hang; lane drained after {pool_lanes_idle(dev, [0]):.3f} s more")
+    for w in range(P):
+        inj.kill(w)
+    t0 = time.perf_counter()
+    try:
+        pool.run_job(x24[: 1 << 20])
+        raise AssertionError("task pool every worker dead: the job did not fail")
+    except JobFailedError as e:
+        took = time.perf_counter() - t0
+        log(f"pool every worker dead: JobFailedError ({e}) after {took * 1e3:.1f} ms")
+    finally:
+        for w in range(P):
+            inj.revive(w)
+    out = pool.run_job(x24)  # the pool serves the next job
+    if not same_bits(out, ref24):
+        raise AssertionError("task pool after every worker died: differs")
+
+    # 7.6 host-to-host medians of 4, in turns (A B B A, two runs each).
+    def in_turns(label, a, b, data, unit_n):
+        a()
+        b()
+        turns = []
+        for name, fn in ((a.__name__, a), (b.__name__, b), (b.__name__, b), (a.__name__, a)):
+            turns += [(name, t) for t in host_times(fn, 2)]
+        med = {}
+        for name in (a.__name__, b.__name__):
+            ts = [t for k, t in turns if k == name]
+            med[name] = float(np.median(ts))
+            log(f"time {label} {name} host-to-host: {med[name]:.3f} ms median of {len(ts)} "
+                f"({unit_n / med[name] / 1e6:.3f} Gkeys/s; runs {[round(t, 3) for t in ts]}) "
+                f"[{card}]")
+        return med
+
+    route = cli._make_sorter(JobConfig(), "spmd")
+    sched = SpmdScheduler(P)
+    for n in (1 << 14, 1 << 17, (1 << 20) - 1):
+        x = random_keys(rng, n, np.int32)
+
+        def fused_route(x=x):
+            return route(x, Metrics())
+
+        def spmd_scheduler(x=x):
+            return sched.sort(x)
+
+        med = in_turns(f"int32 n={n}", fused_route, spmd_scheduler, x, n)
+        log(f"  fused route / SpmdScheduler.sort at n={n}: "
+            f"{med['fused_route'] / med['spmd_scheduler']:.3f} [{card}]")
+
+    def task_pool():
+        return pool.run_job(x24)
+
+    def spmd_scheduler():
+        return sched.sort(x24)
+
+    med = in_turns(f"int32 n={pool_n}", task_pool, spmd_scheduler, x24, pool_n)
+    log(f"  task pool / SpmdScheduler.sort at n={pool_n}: "
+        f"{med['task_pool'] / med['spmd_scheduler']:.3f} [{card}]")
+    m = Metrics()
+    pool.run_job(x24, m)
+    log(f"phases task pool int32 n={pool_n}: {json.dumps(m.summary())} [{card}]")
+    m = Metrics()
+    route(random_keys(rng, (1 << 20) - 1, np.int32), m)
+    log(f"phases fused route int32 n=2^20-1: {json.dumps(m.summary())} [{card}]")
+    profile(lambda: route(random_keys(rng, (1 << 20) - 1, np.int32), Metrics()),
+            "fused route int32 n=2^20-1", card)
+    profile(task_pool, f"task pool int32 n={pool_n}", card)
+
+    # Time to recover: faulted minus healthy, in turns (H F F H).
+    def recover(label, arm, disarm, reps, drain=()):
+        turns = []
+        for kind in ("healthy", "faulted", "faulted", "healthy"):
+            for _ in range(reps):
+                if kind == "faulted":
+                    arm(inj)
+                t0 = time.perf_counter()
+                try:
+                    pool.run_job(x24)
+                finally:
+                    if kind == "faulted" and disarm is not None:
+                        disarm(inj)
+                turns.append((kind, (time.perf_counter() - t0) * 1e3))
+                pool_lanes_idle(dev, drain)
+        med = {k: float(np.median([t for n, t in turns if n == k])) for k in ("healthy", "faulted")}
+        log(f"time to recover, task pool {label}: {med['faulted'] - med['healthy']:.3f} ms "
+            f"(faulted {med['faulted']:.3f} - healthy {med['healthy']:.3f} ms, medians of "
+            f"{2 * reps}; runs {[(n[0], round(t, 3)) for n, t in turns]}) [{card}]")
+
+    recover(f"worker 3 killed before dispatch, int32 n={pool_n}", lambda i: i.kill(3),
+            lambda i: i.revive(3), 2)
+    recover(f"fail_once(2, 'recv'), int32 n={pool_n}", lambda i: i.fail_once(2, "recv"), None, 2)
+    recover(f"hang ({hang_s} s) of worker 0, int32 n={pool_n} (heartbeat wait 1.0 s)",
+            lambda i: i.hang_once(0, "sort", hang_s), None, 1, drain=[0])
+    log(f"small launches per fused 2^20-1 int32 job {fused_launches}, per task-pool n={pool_n} "
+        f"int32 job {pool_launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -592,6 +948,7 @@ def main() -> int:
     from dsort_tpu_torch.parallel import exchange as ex
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort, cap_pair_policy
+    from dsort_tpu_torch.utils.events import EventLog
     from dsort_tpu_torch.utils.metrics import Metrics
 
     card = card_line()
@@ -985,22 +1342,31 @@ def main() -> int:
     xt = random_keys(rng, 10**6, np.int32)
     src, dst = work / "input.txt", work / "output.txt"
     src.write_text("".join(f"{v}\n" for v in xt.tolist()))
+    # 10^6 < 2^20 keys: the fused route (one padded row of 2^20 through the
+    # block kernels, no exchange), as dsort run routes it.
+    want_bytes = "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode()
+    jpath = work / "journal.jsonl"
     reset()
     t0 = time.perf_counter()
-    if cli.main(["run", str(src), "-o", str(dst)]) != 0:
+    if cli.main(["run", str(src), "-o", str(dst), "--journal", str(jpath)]) != 0:
         raise AssertionError("cli run failed")
     wall = time.perf_counter() - t0
     got = launched("cli run", keys_path)
-    if dst.read_bytes() != "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode():
+    if dst.read_bytes() != want_bytes:
         raise AssertionError("cli output differs from the numpy-formatted sorted file")
-    log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, launches {got}")
+    recs = EventLog.read_jsonl(str(jpath))
+    if (recs[0]["mode"] != "fused" or recs[-2]["counters"].get("fused_small_jobs") != 1
+            or got.get("ring_exchange_kernel")):
+        raise AssertionError(f"cli run 10^6 lines did not take the fused route: {recs[0]} {got}")
+    log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, fused route "
+        f"(fused_small_jobs 1), launches {got}")
     reset()
     t0 = time.perf_counter()
     if cli.main(["run", str(src), "-o", str(dst), "--kernel", "pallas"]) != 0:
         raise AssertionError("cli run --kernel pallas failed")
     wall = time.perf_counter() - t0
     got = launched("cli run --kernel pallas", {"tile_sort_kernel"})
-    if dst.read_bytes() != "".join(f"{v}\n" for v in np.sort(xt).tolist()).encode():
+    if dst.read_bytes() != want_bytes:
         raise AssertionError("cli run --kernel pallas output differs from sort -n order")
     log(f"main cli run --kernel pallas 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, "
         f"launches {got}")
@@ -1430,6 +1796,9 @@ def main() -> int:
 
     # 6. the fault plane on the card ------------------------------------------
     fault_plane(card, ss, x32, ref32, z, refz, reset, counts, launched, keys_path)
+
+    # 7. the small-job route, cli run --mode, the task pool ------------------
+    small_jobs_and_taskpool(card, hold, reset, counts, launched, keys_path, src, want_bytes, work)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,8 +6,9 @@ tests hold every ported function against the JAX one on the same numpy
 input.  It imports ``torch`` and ``numpy`` only — nothing of JAX and
 nothing of ``dsort_tpu``.
 
-Ported so far (``dsort run`` and the in-core ``dsort terasort`` in the
-default SPMD mode):
+Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
+the fused small-job route, the task pool, local — and the in-core ``dsort
+terasort``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig`` (the fields the sample sort reads)
@@ -21,15 +22,20 @@ default SPMD mode):
   ops/pallas_sort.py   tile sort, stable key+index tile sort and radix
                        histogram over ``csrc/tile_sort.cu``; ``pallas_sort``
   ops/ring_kernel.py   the fused ring exchange over ``csrc/ring_exchange.cu``
+  ops/merge.py         the host k-way merges and the on-device shard merge
   ops/errors.py        ``KernelLaunchError`` and the CUDA status names
   parallel/mesh.py     ``VirtualMesh``: P shards as rows of one tensor
   parallel/exchange.py the ring schedule: measured caps, shifts, merge tower
   parallel/sample_sort.py  ``SampleSort`` (splitters, buckets, exchange, merge)
+  models/pipelines.py  ``fused_sort_small`` (the small-job route),
+                       ``GatherMergeSort``, ``local_pipeline``, ``pad_rung``
   scheduler/           ``SpmdScheduler`` (bounded waits, probes, re-form over
-                       the survivors), ``FaultInjector``, ``WorkerTable``,
+                       the survivors), the task-pool ``Scheduler`` and
+                       ``DeviceExecutor``, ``FaultInjector``, ``WorkerTable``,
                        the CUDA error classifier
   utils/events.py      ``EventLog``: the JSONL event journal
   cli.py               ``python -m dsort_tpu_torch.cli {run,terasort} IN -o OUT``
+                       (``run --mode spmd|taskpool|local``)
 """
 
 from dsort_tpu_torch.config import ConfigError, JobConfig

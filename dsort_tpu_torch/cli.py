@@ -1,18 +1,27 @@
 """Command line: ``python -m dsort_tpu_torch.cli {run,terasort} ...``.
 
-Counterparts of ``dsort run`` in the default SPMD mode and of the in-core
-``dsort terasort``, over a `VirtualMesh` of ``--workers`` shards on the GPU
-unless ``--device cpu``:
+Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
+``--workers`` virtual workers on the GPU unless ``--device cpu``:
 
-- ``run INPUT -o OUTPUT [--exchange E] [--dtype D] [--journal J]``: one key
-  per line in and out, read and written as ``D`` (default int32; signed and
-  unsigned ints, and floats through the order-preserving key mapping), as
-  ``dsort run --dtype`` reads it.  It sorts through `SpmdScheduler` (failure
-  detection, bounded waits, probes, re-form over the survivors), as ``dsort
-  run --mode spmd`` does; the reference's fused small-job route (below 2^20
-  keys) is not ported yet, so every size goes through the scheduler.
+- ``run INPUT -o OUTPUT [--mode M] [--exchange E] [--dtype D] [--journal
+  J]``: one key per line in and out, read and written as ``D`` (default
+  int32; signed and unsigned ints, and floats through the
+  order-preserving key mapping), as ``dsort run --dtype`` reads it.
+  ``--mode`` routes the job as ``dsort run --mode`` does (`_make_sorter`):
+
+  * ``spmd`` (default): a job under `models.pipelines.FUSED_SMALL_JOB_MAX`
+    keys runs as one fused device program (`fused_sort_small`) under the
+    scheduler's bounded wait (``run_bounded(tag="fused")``); a device
+    error or a lapsed wait falls back to `SpmdScheduler.sort`, and three
+    latches close the fused route after a wedge (below).  Larger jobs go
+    through `SpmdScheduler` (failure detection, bounded waits, probes,
+    re-form over the survivors);
+  * ``taskpool``: `scheduler.Scheduler` over a `DeviceExecutor` (one
+    worker per shard, reassignment, host merge);
+  * ``local``: `fused_sort_small` at any size.
+
   ``--journal J`` writes the job's `EventLog` as JSONL once the job ends,
-  also when it failed;
+  also when it failed, in every mode;
 - ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records
   through `SampleSort.sort_kv` (the reference's ``cmd_terasort`` does not
   use the scheduler either), ordered by the full 10-byte key (8-byte
@@ -28,9 +37,32 @@ from __future__ import annotations
 
 import argparse
 import sys
+import threading
+import time
 
 from dsort_tpu_torch.config import _LOCAL_PORTED, _MERGE_PORTED, JobConfig
+from dsort_tpu_torch.utils.logging import get_logger
 
+log = get_logger("cli")
+
+# The fused route's latches, with the reference's settings (``dsort_tpu/
+# cli.py``), so both CLIs decide alike.  All fused attempts serialize on one
+# lane thread, so "one entry executing for longer than any first build"
+# is evidence that the card is wedged, while any number of cold lapses
+# queued behind a still-building entry is not.  On the H100 a cold first
+# job's cost is the kernels' build (nvcc): 6.09-8.71 s in PERF.md's runs,
+# far below the ceiling.
+FUSED_COLD_WEDGE_CEILING_S = 900.0
+# The cold latch is evidence, not proof, so it expires: after this long the
+# route is tried again; a card still wedged lapses again and re-latches.
+FUSED_COLD_RETRY_S = 1800.0
+# Fail-slow backstop: this many consecutive cold lapses without a fused
+# success latch the route off too (each call errors after the wait budget
+# but before the ceiling, so the lane keeps draining and the ceiling never
+# trips).
+FUSED_COLD_LAPSE_BACKSTOP = 8
+
+MODES = ("spmd", "taskpool", "local")
 EXCHANGES = ("alltoall", "ring", "fused")
 
 
@@ -54,6 +86,9 @@ def _parser() -> argparse.ArgumentParser:
     _common(run, "output.txt")
     run.add_argument("--dtype", default="int32",
                      help="key dtype of the file (int32, int64, uint32, uint64, float32, ...)")
+    run.add_argument("--mode", choices=MODES, default="spmd",
+                     help="spmd (fused route under 2^20 keys, else the SPMD "
+                          "scheduler), taskpool or local")
     run.add_argument("--journal", default=None,
                      help="write the job's structured event journal (JSONL) here")
     _common(
@@ -63,21 +98,127 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
+    """The sort callable ``sorter(data, metrics, job_id=None)`` of one mode;
+    builds its scheduler (and so resolves the device) at once."""
+    if mode == "spmd":
+        from dsort_tpu_torch.models.pipelines import FUSED_SMALL_JOB_MAX, fused_sort_small
+        from dsort_tpu_torch.scheduler import SpmdScheduler
+        from dsort_tpu_torch.scheduler.fault import ProgramWaitTimeout, classify_runtime_error
+
+        sched = SpmdScheduler(workers, device, job)
+        # Warm-wedge latch: once a fused attempt on a warm bucket lapses, its
+        # lane thread is stuck for the process lifetime; skip the route from
+        # then on instead of paying a full wait budget a job.
+        fused_wedged = threading.Event()
+        # Cold latch: a card wedged on first contact never warms the bucket,
+        # so every lapse stays cold; the lane-stuck discriminator and the
+        # backstop close the route until FUSED_COLD_RETRY_S has passed.
+        fused_cold_latch_ts = [0.0]  # 0 = cold latch inactive
+        fused_cold_streak = [0]  # consecutive cold lapses since a success
+
+        def fused_path_open() -> bool:
+            if fused_wedged.is_set():
+                return False
+            ts = fused_cold_latch_ts[0]
+            return not ts or time.monotonic() - ts > FUSED_COLD_RETRY_S
+
+        def sorter(data, metrics, job_id=None):
+            if len(data) < FUSED_SMALL_JOB_MAX and fused_path_open():
+                try:
+                    metrics.event(
+                        "job_start", mode="fused", n_keys=len(data), job_id=job_id,
+                    )
+                    # The bounded wait covers the fused program's completion
+                    # barrier (the download inside fused_sort_small): a
+                    # wedged card lapses and falls back, never blocks.
+                    out = sched.run_bounded(
+                        lambda: fused_sort_small(data, job.local_kernel, metrics,
+                                                 device=sched.device),
+                        n_keys=len(data), tag="fused",
+                    )
+                    metrics.bump("fused_small_jobs")
+                    metrics.event(
+                        "job_done", n_keys=len(data), counters=dict(metrics.counters),
+                    )
+                    fused_cold_latch_ts[0] = 0.0
+                    fused_cold_streak[0] = 0
+                    return out
+                except Exception as e:
+                    lapsed = isinstance(e, ProgramWaitTimeout)
+                    if not lapsed and classify_runtime_error(e) is None:
+                        raise  # a program error, not a device loss or a hang
+                    if lapsed and not getattr(e, "cold", False):
+                        fused_wedged.set()
+                    elif lapsed:
+                        # The streak resets only on a fused success, so a
+                        # fail-slow card re-latches on the one retry after
+                        # the latch expires.
+                        stuck = sched.lane_stuck_for("fused")
+                        fused_cold_streak[0] += 1
+                        if stuck > FUSED_COLD_WEDGE_CEILING_S:
+                            log.warning(
+                                "fused route latched off for %.0f s: its lane has been "
+                                "inside one entry for %.0f s (past the %.0f s ceiling: "
+                                "the card is wedged, not building)",
+                                FUSED_COLD_RETRY_S, stuck, FUSED_COLD_WEDGE_CEILING_S,
+                            )
+                            fused_cold_latch_ts[0] = time.monotonic()
+                        elif fused_cold_streak[0] >= FUSED_COLD_LAPSE_BACKSTOP:
+                            log.warning(
+                                "fused route latched off for %.0f s: %d consecutive cold "
+                                "wait lapses without a fused success (fail-slow backstop)",
+                                FUSED_COLD_RETRY_S, fused_cold_streak[0],
+                            )
+                            fused_cold_latch_ts[0] = time.monotonic()
+                    reason = str(e).splitlines()[0][:120]
+                    metrics.bump("fused_fallbacks")
+                    metrics.event("fused_fallback", reason=reason)
+                    log.warning(
+                        "fused small-job route failed (%s); retrying on the SPMD scheduler",
+                        reason,
+                    )
+            return sched.sort(data, metrics=metrics, job_id=job_id)
+
+        return sorter
+    if mode == "taskpool":
+        from dsort_tpu_torch.scheduler import DeviceExecutor, Scheduler
+
+        pool = Scheduler(DeviceExecutor(workers, device), job)
+        return lambda data, metrics, job_id=None: pool.run_job(
+            data, metrics=metrics, job_id=job_id
+        )
+    if mode == "local":
+        from dsort_tpu_torch.device import resolve_device
+        from dsort_tpu_torch.models.pipelines import fused_sort_small
+
+        dev = resolve_device(device)
+
+        def local_sorter(data, metrics, job_id=None):
+            # No scheduler journals this mode's job boundaries: do it here.
+            metrics.event("job_start", mode="local", n_keys=len(data), job_id=job_id)
+            out = fused_sort_small(data, job.local_kernel, metrics, device=dev)
+            metrics.event("job_done", n_keys=len(data), counters=dict(metrics.counters))
+            return out
+
+        return local_sorter
+    raise SystemExit(f"unknown mode {mode!r}")
+
+
 def _run(args, job: JobConfig) -> int:
     from dsort_tpu_torch.data import ingest
-    from dsort_tpu_torch.scheduler import SpmdScheduler
     from dsort_tpu_torch.utils.events import EventLog
     from dsort_tpu_torch.utils.metrics import Metrics
 
-    sched = SpmdScheduler(args.workers, args.device, job)
+    sorter = _make_sorter(job, args.mode, args.workers, args.device)
     journal = EventLog() if args.journal else None
     try:
         keys = ingest.read_ints_file(args.input, args.dtype)
         metrics = Metrics(journal=journal)
         try:
-            out = sched.sort(keys, metrics=metrics, exchange=args.exchange)
+            out = sorter(keys, metrics)
         except BaseException as e:
-            # The scheduler journals job_failed only on its clean failure
+            # The schedulers journal job_failed only on their clean failure
             # path (no live worker); close the job on any other escape too.
             metrics.event(
                 "job_failed", reason=(str(e).splitlines() or [repr(e)])[0][:120],
@@ -96,7 +237,8 @@ def _run(args, job: JobConfig) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel)
+    job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel,
+                    **({"exchange": args.exchange} if args.exchange else {}))
     if args.cmd == "run":
         return _run(args, job)
     from dsort_tpu_torch.data import ingest

@@ -59,7 +59,8 @@ class JobConfig:
       sized from the measured histogram, merged as they land) or
       ``fused`` (the same schedule as one exchange kernel plus one merge,
       `ops.ring_kernel`); ``hier`` is not ported yet;
-    - the fault plane (`scheduler.SpmdScheduler`), with the reference's
+    - the fault plane (`scheduler.SpmdScheduler`, the fused route's
+      bounded wait in ``cli run``), with the reference's
       defaults: ``settle_delay_s`` between a failure and the re-run;
       ``heartbeat_timeout_s`` bounds a liveness probe; a whole attempt's
       wait is bounded by ``heartbeat_timeout_s + exec_allowance_floor_s +
@@ -67,6 +68,10 @@ class JobConfig:
       its (mesh, size bucket) has not completed once (the first launch
       builds the kernels); ``max_transient_retries`` bounds the re-runs
       after a lapsed wait or a runtime error with every probe healthy.
+      The task pool (`scheduler.Scheduler`) waits ``heartbeat_timeout_s``
+      for a shard's attempt, plus ``compile_grace_s`` (in windows of 1x, 2x
+      and 4x) while the (worker, shape) has not completed once, and retries
+      a transient error on the same worker ``max_transient_retries`` times.
     """
 
     local_kernel: str = "auto"

@@ -5,17 +5,25 @@ text IO is not ported yet), byte-compatible with the reference:
 
 - ``read_ints_file`` / ``write_ints_file``: one decimal int per line,
   ``\\n``-terminated (the reference's ``input.txt`` / ``output.txt``), read
-  in ``np.loadtxt``'s grammar as the reference's fallback reads it (``#``
-  comments, ``+`` signs); keys outside the dtype's range raise
-  `OverflowError` instead of wrapping; float dtypes read and write
-  round-trip decimal text;
+  in the grammar of the reference's reader: ``#`` comments and ``+`` signs
+  as ``np.loadtxt`` takes them, and integral float text (``3.0``, ``3.``,
+  ``1e3``) read as the integer it names for integer dtypes, as the
+  reference's parser reads it.  Two departures, each an error where the
+  reference would return a wrong key: lossy text for an integer dtype
+  (``3.5``, ``nan``, ``inf``) raises `ValueError` where the reference
+  truncates it, and keys outside the dtype's range raise `OverflowError`
+  where the reference wraps them.  ``_`` digit separators (``1_000``)
+  raise `ValueError` for every dtype, as in the reference.  Float dtypes
+  read and write round-trip decimal text;
 - TeraSort's 100-byte binary records (`read_terasort_file`,
   `write_terasort_file`, `gen_terasort`).
 """
 
 from __future__ import annotations
 
+import decimal
 import os
+import re
 
 import numpy as np
 
@@ -27,17 +35,44 @@ def _strip_comments(raw: bytes) -> bytes:
     return b"\n".join(line.split(b"#", 1)[0] for line in raw.split(b"\n"))
 
 
+_INT_TEXT = re.compile(rb"[+-]?[0-9]+")
+
+
+def _integral(token: bytes) -> int:
+    """The integer a token names: decimal int text, or float text whose
+    value is integral (``3.0``, ``3.``, ``-1e3``), read exactly.  Raises
+    `ValueError` for anything else, lossy text (``3.5``, ``nan``, ``inf``)
+    included."""
+    if _INT_TEXT.fullmatch(token):
+        return int(token)
+    try:
+        d = decimal.Decimal(token.decode("ascii"))
+    except (decimal.InvalidOperation, UnicodeDecodeError):
+        raise ValueError(f"could not read {token!r} as a number") from None
+    if not d.is_finite() or d != d.to_integral_value():
+        raise ValueError(f"{token!r} is not an integer; read it with a float dtype")
+    return int(d)
+
+
 def read_ints_file(path: str | os.PathLike, dtype=np.int32) -> np.ndarray:
     """Read an ASCII file of whitespace-separated numbers into ``dtype``.
 
     ``#`` starts a comment, on a line of its own or after a number, and
-    ints may carry a ``+`` sign: ``np.loadtxt``'s grammar, which the
-    reference falls back to.  An integer ``dtype`` takes decimal ints only;
-    a float ``dtype`` also takes ``nan`` / ``inf`` and exponents.
+    numbers may carry a ``+`` sign.  An integer ``dtype`` takes decimal
+    ints and integral float text (``3.0``, ``1e3``); lossy text (``3.5``,
+    ``nan``) raises `ValueError` and values outside the dtype raise
+    `OverflowError`.  A float ``dtype`` also takes ``nan`` / ``inf`` and
+    exponents.  ``_`` separators raise `ValueError` (module docstring).
     """
     dtype = np.dtype(dtype)
     with open(path, "rb") as f:
-        tokens = _strip_comments(f.read()).split()
+        text = _strip_comments(f.read())
+    if b"_" in text:
+        # Python's int() and float(), under numpy's conversion, read
+        # "1_000" as 1000; the reference's parser refuses it.
+        bad = next(t for t in text.split() if b"_" in t)
+        raise ValueError(f"could not read {bad!r}: '_' digit separators are not accepted")
+    tokens = text.split()
     if dtype.kind == "f":
         return np.array(tokens, dtype=dtype)
     if dtype.kind not in "iu":
@@ -45,7 +80,10 @@ def read_ints_file(path: str | os.PathLike, dtype=np.int32) -> np.ndarray:
     # Parse at full width (numpy raises OverflowError past 64 bits), then
     # range-check: a narrowing cast would wrap silently.
     wide = np.uint64 if np.issubdtype(dtype, np.unsignedinteger) else np.int64
-    vals = np.array(tokens, dtype=wide)
+    try:
+        vals = np.array(tokens, dtype=wide)
+    except ValueError:  # float text: integral values only, read exactly
+        vals = np.array([_integral(t) for t in tokens], dtype=wide)
     info = np.iinfo(dtype)
     if len(vals) and (vals.min() < info.min or vals.max() > info.max):
         raise OverflowError(

@@ -7,6 +7,8 @@ CPU request they raise: a sort never falls back to the CPU quietly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,3 +29,10 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def device_scope(device: torch.device):
+    """Make ``device`` current on the calling thread (a scheduler's lane
+    thread included), so a kernel wrapper's ``current_stream`` never
+    assumes which card is current; a no-op for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -16,7 +16,8 @@ unsigned mapping followed by the sign-bit flip (the trick of
 -0.0 orders just before +0.0; ±0.0, ±inf and subnormals round-trip
 bit-exactly.  `unsigned_to_signed` / `signed_to_unsigned` are the plain
 sign-bit flip for unsigned integer keys; `sort_float_keys_via_uint` is the
-one float boundary every host driver goes through.
+one float boundary every host entry point goes through, and
+`sort_narrow_keys_via_int32` the boundary of 8- and 16-bit integer keys.
 """
 
 from __future__ import annotations
@@ -125,3 +126,23 @@ def sort_float_keys_via_uint(sort_fn, keys: np.ndarray, *args, **kwargs):
     if isinstance(out, tuple):
         return (unmap(out[0]),) + out[1:]
     return unmap(out)
+
+
+def is_narrow_int_dtype(dtype) -> bool:
+    """True for numpy integer key dtypes under 32 bits (int8, uint8, int16,
+    uint16): the kernels and the fused ring take 32- and 64-bit keys."""
+    dtype = np.dtype(dtype)
+    return dtype.kind in "iu" and dtype.itemsize < 4
+
+
+def sort_narrow_keys_via_int32(sort_fn, keys: np.ndarray, *args, **kwargs):
+    """Run a sort of 8- or 16-bit integer host keys as int32: widen (every
+    value fits, so the order is kept), ``sort_fn(wide, *args, **kwargs)``,
+    narrow back.  Float16 keys reach it as their int16 carrier, through
+    `sort_float_keys_via_uint`.  ``sort_fn`` returns the sorted keys, or a
+    tuple whose first element is the sorted keys."""
+    keys = np.asarray(keys)
+    out = sort_fn(keys.astype(np.int32), *args, **kwargs)
+    if isinstance(out, tuple):
+        return (out[0].astype(keys.dtype),) + out[1:]
+    return out.astype(keys.dtype)

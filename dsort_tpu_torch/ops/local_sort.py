@@ -72,11 +72,28 @@ def resolve_kernel(kernel: str, dtype, n: int, device) -> str:
     )
 
 
+def widened_keys(sort_fn, keys: torch.Tensor) -> torch.Tensor:
+    """``sort_fn(keys)`` for the 32/64-bit kernels, whatever the key width.
+
+    8- and 16-bit keys (int8, uint8, int16, uint16, float16) take their
+    signed carrier (`ops.float_order.to_signed_keys`), widen to int32 (an
+    order-preserving cast), sort, and narrow back: the kernels take 32- and
+    64-bit keys only, and the reference sorts these dtypes too.
+    """
+    if keys.dtype.itemsize >= 4:
+        return sort_fn(keys)
+    from dsort_tpu_torch.ops.float_order import from_signed_keys, to_signed_keys
+
+    s = to_signed_keys(keys)
+    return from_signed_keys(sort_fn(s.to(torch.int32)).to(s.dtype), keys.dtype)
+
+
 def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
     """Ascending sort along the last axis through one of the local kernels:
     ``auto`` (see `resolve_kernel`), ``lax`` (``torch.sort``), ``block``
     (`ops.block_sort.block_sort`), ``bitonic`` (`ops.bitonic.bitonic_sort`)
-    or ``pallas`` (`ops.pallas_sort.pallas_sort`)."""
+    or ``pallas`` (`ops.pallas_sort.pallas_sort`); ``block`` and ``pallas``
+    take 8- and 16-bit keys through `widened_keys`."""
     if kernel == "auto":
         kernel = resolve_kernel(kernel, keys.dtype, keys.shape[-1], keys.device)
     if kernel == "lax":
@@ -84,7 +101,7 @@ def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
     if kernel == "block":
         from dsort_tpu_torch.ops.block_sort import block_sort
 
-        return block_sort(keys)
+        return widened_keys(block_sort, keys)
     if kernel == "bitonic":
         from dsort_tpu_torch.ops.bitonic import bitonic_sort
 
@@ -92,7 +109,7 @@ def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
     if kernel == "pallas":
         from dsort_tpu_torch.ops.pallas_sort import pallas_sort
 
-        return pallas_sort(keys)
+        return widened_keys(pallas_sort, keys)
     if kernel == "radix":
         raise NotImplementedError(
             f"local kernel {kernel!r} is not yet ported to dsort_tpu_torch"

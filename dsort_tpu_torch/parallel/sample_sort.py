@@ -38,7 +38,9 @@ from dsort_tpu_torch.config import JobConfig
 from dsort_tpu_torch.data.partition import pad_kv_to_shards, pad_to_layout, pad_to_shards
 from dsort_tpu_torch.ops.float_order import (
     from_signed_keys,
+    is_narrow_int_dtype,
     sort_float_keys_via_uint,
+    sort_narrow_keys_via_int32,
     to_signed_keys,
 )
 from dsort_tpu_torch.ops.local_sort import (
@@ -350,13 +352,17 @@ class SampleSort:
 
         Float keys (with NaN, ±0.0, ±inf) ride as order-preserving signed
         ints (`ops.float_order`): NaNs sort last like ``np.sort`` and come
-        back canonical, never trimmed as pads.  ``exchange`` (``alltoall``,
-        ``ring`` or ``fused``) overrides `JobConfig.exchange` for this call;
-        every choice gives the same bits.
+        back canonical, never trimmed as pads.  8- and 16-bit keys sort
+        as int32 (`ops.float_order.sort_narrow_keys_via_int32`): the kernels
+        and the fused ring take 32- and 64-bit keys.  ``exchange``
+        (``alltoall``, ``ring`` or ``fused``) overrides `JobConfig.exchange`
+        for this call; every choice gives the same bits.
         """
         data = np.asarray(data)
         if data.dtype.kind == "f":
             return sort_float_keys_via_uint(self.sort, data, metrics, exchange=exchange)
+        if is_narrow_int_dtype(data.dtype):
+            return sort_narrow_keys_via_int32(self.sort, data, metrics, exchange=exchange)
         if len(data) == 0:
             return data.copy()
         return self._sort_ranges_impl(data, metrics, exchange)[0]
@@ -517,6 +523,10 @@ class SampleSort:
         payload = np.asarray(payload)
         if keys.dtype.kind == "f":
             return sort_float_keys_via_uint(
+                self.sort_kv, keys, payload, metrics, secondary, exchange=exchange
+            )
+        if is_narrow_int_dtype(keys.dtype):
+            return sort_narrow_keys_via_int32(
                 self.sort_kv, keys, payload, metrics, secondary, exchange=exchange
             )
         exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)

@@ -9,4 +9,8 @@ from dsort_tpu_torch.scheduler.fault import (  # noqa: F401
     WorkerWaitTimeout,
     WorkerFailure,
 )
-from dsort_tpu_torch.scheduler.scheduler import SpmdScheduler  # noqa: F401
+from dsort_tpu_torch.scheduler.scheduler import (  # noqa: F401
+    DeviceExecutor,
+    Scheduler,
+    SpmdScheduler,
+)

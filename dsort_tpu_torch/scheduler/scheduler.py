@@ -1,11 +1,34 @@
-"""`SpmdScheduler`: the whole-mesh sort with re-form-and-re-run recovery.
+"""The two schedulers: the task pool and the whole-mesh SPMD sort.
 
-Counterpart of ``dsort_tpu/scheduler/scheduler.py``'s `SpmdScheduler` (its
-task-pool `Scheduler` / `DeviceExecutor` are not ported yet).  A compiled
-collective cannot lose a participant mid-flight, so recovery is phrased as
-*re-form the mesh over the live workers and re-run*: on a failure the dead
-worker is excluded and the job re-dispatched to a `VirtualMesh` of the
-survivors.  The reference's semantics are kept:
+Counterpart of ``dsort_tpu/scheduler/scheduler.py``.  Both run over the
+same liveness machinery (`WorkerTable`, `FaultInjector`, the per-worker
+attempt lanes) and journal under the reference's event and counter names
+through ``Metrics.event``.
+
+`Scheduler` (``--mode taskpool``) is the reference C system's own design:
+one worker per shard, one handler thread per shard, with
+
+- failure detected on the exchange itself (an injected `WorkerFailure` at
+  ``send`` / ``sort`` / ``recv``, or a CUDA error that
+  `fault.classify_runtime_error` names a device error), plus a bounded
+  wait per attempt, so a *hung* worker is detected too
+  (`WorkerWaitTimeout`);
+- reassignment by a linear scan for the first live worker and a retry of
+  the whole shard there, after ``settle_delay_s``;
+- result-slot pinning (shard ``i`` lands in slot ``i`` whichever worker
+  ran it) and a host k-way merge (`ops.merge.merge_sorted_host`);
+- all workers dead => `JobFailedError`, the scheduler survives for the
+  next job; per-job optimistic revival of dead workers.
+
+`DeviceExecutor` runs one shard on one virtual worker: the workers are
+rows of one card, as `VirtualMesh` has them, so every worker's upload,
+sort and download reach ``executor.device``.
+
+`SpmdScheduler` (``--mode spmd``) phrases recovery as *re-form the mesh
+over the live workers and re-run*, since a compiled collective cannot lose
+a participant mid-flight: on a failure the dead worker is excluded and the
+job re-dispatched to a `VirtualMesh` of the survivors.  The reference's
+semantics are kept:
 
 - failure detected on the exchange itself (an injected `WorkerFailure`, or a
   CUDA error that `fault.classify_runtime_error` names a device error, then
@@ -15,9 +38,7 @@ survivors.  The reference's semantics are kept:
   ones that fail, and re-forms — or, with every probe healthy, retries a
   bounded number of times with a geometrically growing budget;
 - all workers dead ⇒ `JobFailedError`, the scheduler survives for the next
-  job; per-job optimistic revival of dead workers;
-- a journal of all of it through ``Metrics.event`` under the reference's
-  event and counter names.
+  job; per-job optimistic revival of dead workers.
 
 **One card.**  The workers are virtual: worker ``i`` is row ``i`` of the
 mesh, and every worker's probe is a round trip to the same card
@@ -28,13 +49,15 @@ survivors come with a ``torch.distributed`` group of several cards.
 
 Not ported yet, each refused with a "not yet ported" error: device-resident
 results (``keep_on_device``), the coded ``redundancy`` plane, the ``hier``
-exchange (refused by `SampleSort`) and range checkpoints (``checkpoint_dir``
-is refused by `JobConfig.from_dict`).
+exchange (refused by `SampleSort`) and checkpoints of shards and ranges
+(``checkpoint_dir`` is refused by `JobConfig.from_dict`).  The flight
+recorder (``obs.flight``) is not ported: neither scheduler writes flight
+bundles.
 """
 
 from __future__ import annotations
 
-import contextlib
+import functools
 import threading
 import time
 
@@ -42,8 +65,16 @@ import numpy as np
 import torch
 
 from dsort_tpu_torch.config import JobConfig
-from dsort_tpu_torch.device import resolve_device
-from dsort_tpu_torch.ops.float_order import is_float_key_dtype, sort_float_keys_via_uint
+from dsort_tpu_torch.data.partition import partition
+from dsort_tpu_torch.device import device_scope, resolve_device
+from dsort_tpu_torch.ops.float_order import (
+    from_signed_keys,
+    is_float_key_dtype,
+    sort_float_keys_via_uint,
+    to_signed_keys,
+)
+from dsort_tpu_torch.ops.local_sort import sort_with_kernel
+from dsort_tpu_torch.ops.merge import merge_sorted_host
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 from dsort_tpu_torch.parallel.sample_sort import SampleSort
 from dsort_tpu_torch.scheduler.fault import (
@@ -51,11 +82,12 @@ from dsort_tpu_torch.scheduler.fault import (
     JobFailedError,
     ProgramWaitTimeout,
     WorkerFailure,
+    WorkerWaitTimeout,
     classify_runtime_error,
 )
 from dsort_tpu_torch.scheduler.liveness import WorkerTable
 from dsort_tpu_torch.utils.logging import get_logger
-from dsort_tpu_torch.utils.metrics import Metrics
+from dsort_tpu_torch.utils.metrics import Metrics, PhaseTimer
 
 log = get_logger("scheduler")
 
@@ -144,10 +176,243 @@ def _sort_kwargs(exchange) -> dict:
     return {} if exchange is None else {"exchange": exchange}
 
 
-def _device_scope(device: torch.device):
-    """Make ``device`` current on the calling (lane) thread, so a kernel
-    wrapper's ``current_stream`` never assumes which card is current."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+class DeviceExecutor:
+    """Runs one shard's sort on one virtual worker — the task pool's worker.
+
+    ``num_workers`` virtual workers on ``device`` (``cuda`` unless ``cpu``
+    is asked), as `VirtualMesh` has them.  `sort_shard` keeps the reference
+    worker's three stages in order, each behind the injector's check:
+    ``send`` then the upload (``server.c:342-398``), ``sort`` then
+    `ops.local_sort.sort_with_kernel` (``client.c:140-173``), ``recv`` then
+    the download (``server.c:412-452``), which is the completion barrier.
+    """
+
+    def __init__(
+        self,
+        num_workers: int = 8,
+        device=None,
+        injector: FaultInjector | None = None,
+        table: WorkerTable | None = None,
+        kernel: str = "auto",
+    ):
+        if num_workers < 1:
+            raise ValueError(f"num_workers must be >= 1, got {num_workers}")
+        self.num_workers = int(num_workers)
+        self.device = resolve_device(device)
+        self.injector = injector
+        self.table = table
+        #: The local sort kernel (`ops.local_sort.sort_with_kernel`; ``auto``
+        #: is the block kernels for shards of 2^16 keys and more on the card,
+        #: ``torch.sort`` elsewhere).
+        self.kernel = kernel
+
+    def _check(self, worker: int, stage: str) -> None:
+        if self.injector is not None:
+            self.injector.check(worker, stage)
+        if self.table is not None:
+            self.table.heartbeat(worker)
+
+    def sort_shard(self, worker: int, data: np.ndarray) -> np.ndarray:
+        self._check(worker, "send")
+        with device_scope(self.device):
+            x = torch.from_numpy(np.ascontiguousarray(data)).to(self.device)
+            self._check(worker, "sort")
+            y = from_signed_keys(sort_with_kernel(to_signed_keys(x), self.kernel), x.dtype)
+            self._check(worker, "recv")
+            return y.cpu().numpy()
+
+
+class Scheduler:
+    """Task-pool scheduler: shard dispatch, liveness, reassignment, merge."""
+
+    def __init__(self, executor: DeviceExecutor, job: JobConfig | None = None):
+        self.executor = executor
+        self.job = job or JobConfig()
+        self.table = WorkerTable(executor.num_workers, self.job.heartbeat_timeout_s)
+        executor.table = self.table
+        # The job's kernel choice wins over the executor's default.
+        executor.kernel = self.job.local_kernel
+        # (worker, shape, dtype, kernel) combos that completed once on that
+        # worker: each virtual worker keeps its own cold windows, as each of
+        # the reference's devices compiles its own executable.  On the card
+        # the cold cost is the first build of the kernels.
+        self._warm_shapes: set = set()
+
+    def _warm_key(self, worker: int, shard: np.ndarray) -> tuple:
+        return (worker, shard.shape, str(shard.dtype), self.executor.kernel)
+
+    def _attempt_timeout(self, worker: int, shard: np.ndarray) -> float:
+        return self._timeout_for(self._warm_key(worker, shard))
+
+    def _timeout_for(self, warm_key: tuple) -> float:
+        return self.job.heartbeat_timeout_s + (
+            0.0 if warm_key in self._warm_shapes else self.job.compile_grace_s
+        )
+
+    def _attempt(
+        self, worker: int, shard: np.ndarray, metrics: Metrics | None = None
+    ) -> np.ndarray:
+        """One attempt of one shard on one worker, under a bounded wait.
+
+        Runs on the worker's own daemon lane (`_AttemptLane`), so a hung
+        attempt, which cannot be killed, is abandoned rather than blocking
+        process exit, and abandoned threads stay bounded at one per worker.
+        A later attempt on a hung worker queues behind the stuck call; its
+        wait lapses too and the shard moves on.
+
+        A lapsed wait on a cold key (this (worker, shape) never completed,
+        so the budget held ``compile_grace_s``) may be a slow first build,
+        not a hang: the wait extends on the same in-flight attempt with
+        doubled windows (1x + 2x + 4x the budget in all) before the worker
+        is declared hung — no resubmit, so the shard is never sorted twice.
+        With ``compile_grace_s=0`` a cold lapse is a hang like any other.
+        """
+        lane = _lane_for_device(self.executor.device, worker)
+        box, done, abandoned = lane.submit(
+            functools.partial(self.executor.sort_shard, worker, shard)
+        )
+        key = self._warm_key(worker, shard)
+        cold = key not in self._warm_shapes and self.job.compile_grace_s > 0
+        budget = self._timeout_for(key)
+        windows = [budget, 2 * budget, 4 * budget] if cold else [budget]
+        ok = False
+        for n, w in enumerate(windows):
+            if done.wait(timeout=w):
+                ok = True
+                break
+            if n < len(windows) - 1:
+                if metrics is not None:
+                    metrics.bump("cold_wait_retries")
+                log.warning(
+                    "cold-key wait lapsed on worker %d — extending to a "
+                    "%dx window (likely a slow first build, not a hang)",
+                    worker, 2 ** (n + 1),
+                )
+        if not ok:
+            abandoned.set()  # if still queued, it will be skipped, not run
+            raise WorkerWaitTimeout(f"worker {worker} heartbeat timeout")
+        if "e" in box:
+            raise box["e"]
+        if "r" not in box:  # skipped as abandoned by a racing earlier waiter
+            raise WorkerWaitTimeout(f"worker {worker} attempt abandoned")
+        self._warm_shapes.add(key)
+        return box["r"]
+
+    def _handle_shard(
+        self, i: int, shard: np.ndarray, results: list, metrics: Metrics,
+        errors: list | None = None,
+    ) -> None:
+        """One shard's lifecycle: the reference's ``worker_handler`` loop."""
+        worker = i if self.table.is_alive(i) else -1
+        transient_left = self.job.max_transient_retries
+        while True:
+            if worker < 0 or not self.table.is_alive(worker):
+                worker = self.table.first_live()
+                if worker is None:
+                    return  # clean abort; the job-level gate raises
+            try:
+                metrics.event("attempt_start", shard=i, worker=worker)
+                results[i] = self._attempt(worker, shard, metrics)
+                return  # result pinned to slot i (server.c:415)
+            except Exception as e:
+                kind = classify_runtime_error(e)
+                # Only the dedicated wait-timeout type means "worker hung";
+                # a genuine TimeoutError from inside the attempt surfaces
+                # through the ordinary error path below.
+                if isinstance(e, (WorkerFailure, WorkerWaitTimeout)):
+                    stage = getattr(e, "stage", "timeout")
+                elif kind == "transient" and transient_left > 0:
+                    # The device underneath is likely healthy: retry the
+                    # SAME worker a bounded number of times first.
+                    transient_left -= 1
+                    metrics.bump("transient_retries")
+                    metrics.event("transient_retry", shard=i, worker=worker)
+                    log.warning(
+                        "transient runtime error on worker %d shard %d "
+                        "(retries left %d): %s",
+                        worker, i, transient_left, str(e).splitlines()[0][:120],
+                    )
+                    time.sleep(self.job.settle_delay_s)
+                    continue
+                elif kind is not None:
+                    # A real CUDA failure of the device, the send()/recv()
+                    # <= 0 analogue (server.c:358,421-448), is handled like
+                    # an injected one; program errors go to the caller.
+                    stage = "device-runtime"
+                    metrics.bump("device_runtime_errors")
+                else:
+                    if errors is not None:
+                        errors[i] = e
+                        return
+                    raise
+                log.warning(
+                    "worker %d failed during %s of shard %d; reassigning",
+                    worker, stage, i,
+                )
+                if isinstance(e, WorkerWaitTimeout):
+                    metrics.bump("heartbeat_timeouts")
+                    metrics.event("heartbeat_lapse", worker=worker, shard=i)
+                self.table.mark_dead(worker)
+                metrics.bump("reassignments")
+                metrics.event("worker_dead", worker=worker, stage=stage)
+                nxt = self.table.first_live()
+                if nxt is None:
+                    return
+                log.warning("reassigning shard %d to worker %d", i, nxt)
+                metrics.event("reassign", shard=i, frm=worker, to=nxt)
+                time.sleep(self.job.settle_delay_s)  # server.c:304,391,446
+                worker = nxt
+
+    def run_job(
+        self, data: np.ndarray, metrics: Metrics | None = None, job_id: str | None = None,
+    ) -> np.ndarray:
+        """One sort job: partition -> dispatch -> (reassign) -> merge.
+
+        Raises `JobFailedError` if any shard could not complete (every
+        worker dead); the scheduler stays usable for the next job.  A
+        program error of a shard's attempt propagates once every shard's
+        handler has ended.
+        """
+        data = np.asarray(data)
+        if data.dtype.kind == "f":
+            # Workers and the host merge only ever see the signed carrier.
+            return sort_float_keys_via_uint(self.run_job, data, metrics, job_id)
+        metrics = metrics if metrics is not None else Metrics()
+        timer = PhaseTimer(metrics)
+        w = self.executor.num_workers
+        metrics.event("job_start", mode="taskpool", n_keys=len(data), job_id=job_id)
+        self.table.revive_all()  # server.c:222,278
+        with timer.phase("partition"):
+            shards = partition(data, w)
+        results: list[np.ndarray | None] = [None] * w
+        errors: list[BaseException | None] = [None] * w
+        with timer.phase("dispatch"):
+            threads = [
+                threading.Thread(
+                    target=self._handle_shard, args=(i, shards[i], results, metrics, errors),
+                )
+                for i in range(w)
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        for e in errors:
+            if e is not None:  # a genuine program error, not a worker death
+                raise e
+        if any(r is None for r in results):
+            metrics.event(
+                "job_failed", reason="no live workers remain",
+                counters=dict(metrics.counters),
+            )
+            raise JobFailedError(
+                "job failed: no live workers remain "
+                f"(completed {sum(r is not None for r in results)}/{w} shards)"
+            )
+        with timer.phase("merge"):
+            out = merge_sorted_host(results)
+        metrics.event("job_done", n_keys=len(data), counters=dict(metrics.counters))
+        return out
 
 
 class SpmdScheduler:
@@ -238,7 +503,7 @@ class SpmdScheduler:
         def probe():
             if self.injector is not None:
                 self.injector.check(idx, "probe")
-            with _device_scope(self.device):
+            with device_scope(self.device):
                 y = torch.zeros(8, dtype=torch.int32).to(self.device)
                 return int(y.cpu().sum()) == 0
 
@@ -404,7 +669,7 @@ class SpmdScheduler:
                     ss.fault_hook = ring_hook
                 else:
                     ss.fault_hook = None
-                with _device_scope(self.device):
+                with device_scope(self.device):
                     return ss.sort(data, metrics, **_sort_kwargs(exchange))
 
             try:

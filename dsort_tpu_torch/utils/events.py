@@ -27,6 +27,9 @@ EVENT_TYPES: dict[str, str] = {
     "probe": "a liveness probe ran on one device (worker, ok)",
     "worker_dead": "a worker/device was declared dead (worker, stage)",
     "mesh_reform": "the SPMD mesh re-formed over survivors (survivors)",
+    "reassign": "a shard moved to another worker (shard, frm, to)",
+    "fused_fallback": "the fused small-job path failed over to the "
+                      "scheduler (reason)",
     "capacity_retry": "an all_to_all bucket overflowed; retry resized "
                       "(observed, cap_pair)",
     "transient_retry": "a transient runtime error retried in place (worker)",

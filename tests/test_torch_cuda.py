@@ -531,3 +531,72 @@ def test_probe_round_trip_and_refused_launch_on_cuda(cuda):
     assert (e.value.code, e.value.name) == (1, "cudaErrorInvalidValue")
     assert classify_runtime_error(e.value) is None
     assert tb.launch_counts()["bitonic_global_stage_kernel"] == 0
+
+
+# -- one-row grids: the fused route and the task pool ------------------------
+
+ONE_ROW = [1 << e for e in range(16, 21)] + [(1 << 17) + 3, (1 << 20) - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ONE_ROW)
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_one_row_block_and_tile_sorts(cuda, dtype, n):
+    """`block_sort` and `pallas_sort` of one row of 2^16..2^20 keys (16 to
+    256 block tiles, 2 to 32 S1 tiles a row) equal `torch.sort`, each
+    kernel of the path launched."""
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    x = torch.from_numpy(_keys(np.random.default_rng(n), (1, n), dtype)).to(cuda)
+    want = torch.sort(x).values
+    tb.reset_launch_counts()
+    ps.reset_launch_counts()
+    assert torch.equal(tb.block_sort(x), want)
+    assert torch.equal(ps.pallas_sort(x), want)
+    counts = {**tb.launch_counts(), **ps.launch_counts()}
+    assert all(counts[name] for name in tb.WRAPPERS), counts
+    assert counts["tile_sort_kernel"] == 1, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["auto", "pallas"])
+def test_fused_sort_small_on_cuda(cuda, kernel):
+    """A fused job of 2^20 - 1 keys sorts one row through the card's
+    kernels; below a 2^16-key rung ``auto`` launches no block kernel."""
+    from dsort_tpu_torch.models.pipelines import fused_sort_small
+    from dsort_tpu_torch.ops import pallas_sort as ps
+
+    rng = np.random.default_rng(43)
+    for dtype in (np.int32, np.uint32, np.int64, np.int16):
+        x = _keys(rng, (1 << 20) - 1, dtype)
+        tb.reset_launch_counts()
+        ps.reset_launch_counts()
+        np.testing.assert_array_equal(fused_sort_small(x, kernel), np.sort(x))
+        counts = {**tb.launch_counts(), **ps.launch_counts()}
+        if kernel == "auto" and np.dtype(dtype).itemsize >= 4:
+            assert all(counts[name] for name in tb.WRAPPERS), counts
+        if kernel == "pallas":
+            assert counts["tile_sort_kernel"] == 1, counts
+    small = _keys(rng, 1 << 14, np.int32)
+    tb.reset_launch_counts()
+    np.testing.assert_array_equal(fused_sort_small(small), np.sort(small))
+    assert not any(tb.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_taskpool_kill_on_cuda(cuda):
+    """The task pool with worker 3 killed: its shard reassigned to worker 0,
+    every shard sorted by the block kernels on one row."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.scheduler import DeviceExecutor, FaultInjector, Scheduler
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    inj = FaultInjector()
+    inj.kill(3)
+    pool = Scheduler(DeviceExecutor(8, cuda, inj), JobConfig(settle_delay_s=0.01))
+    x = _keys(np.random.default_rng(44), 1 << 21, np.int32)
+    m = Metrics()
+    tb.reset_launch_counts()
+    np.testing.assert_array_equal(pool.run_job(x, m), np.sort(x))
+    assert m.counters["reassignments"] == 1 and not pool.table.is_alive(3)
+    assert tb.launch_counts()["bitonic_tile_kernel"] == 8

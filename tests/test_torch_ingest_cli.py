@@ -92,3 +92,48 @@ def test_cli_run_dtype_round_trips(tmp_path, dtype):
     assert cli.main(["run", str(src), "-o", str(dst), "--dtype", dtype, "--device", "cpu"]) == 0
     got = ingest.read_ints_file(dst, dt)
     np.testing.assert_array_equal(got, np.sort(x))
+
+
+# The reader's grammar, pinned (module docstring of data/ingest.py): "_"
+# separators are refused by both packages; integral float text reads as the
+# integer it names, as the reference reads it; lossy text raises in the port
+# where the reference truncates it (3.5 -> 3, nan -> INT_MIN).
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint32, np.float32])
+def test_read_ints_file_refuses_digit_separators(tmp_path, dtype):
+    p = tmp_path / "in.txt"
+    p.write_text("5\n1_000\n")
+    with pytest.raises(ValueError):
+        jingest.read_ints_file(p, dtype)
+    with pytest.raises(ValueError, match="'_'"):
+        ingest.read_ints_file(p, dtype)
+    p.write_text("# a_comment_with_underscores\n5\n")
+    np.testing.assert_array_equal(ingest.read_ints_file(p, dtype), jingest.read_ints_file(p, dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint32, np.uint64])
+def test_read_ints_file_reads_integral_float_text_as_jax(tmp_path, dtype):
+    p = tmp_path / "in.txt"
+    p.write_text("3.0\n3.\n1e3\n1E3\n+7.0e0\n-0.0\n12\n2.5e1\n")
+    want = jingest.read_ints_file(p, dtype)
+    got = ingest.read_ints_file(p, dtype)
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [3, 3, 1000, 1000, 7, 0, 12, 25])
+
+
+@pytest.mark.parametrize("token", ["3.5", "nan", "inf", "-1.25e0", "1e-3", "0x10", "."])
+def test_read_ints_file_refuses_lossy_text(tmp_path, token):
+    p = tmp_path / "in.txt"
+    p.write_text(f"5\n{token}\n")
+    with pytest.raises(ValueError):
+        ingest.read_ints_file(p, np.int64)
+
+
+@pytest.mark.parametrize("text,dtype", [("2147483648.0\n", np.int32), ("-3.0\n", np.uint32),
+                                        ("1e20\n", np.int64)])
+def test_read_ints_file_integral_float_text_out_of_range_raises(tmp_path, text, dtype):
+    p = tmp_path / "in.txt"
+    p.write_text(text)
+    with pytest.raises(OverflowError):
+        ingest.read_ints_file(p, dtype)

@@ -34,6 +34,7 @@ from dsort_tpu.utils.metrics import Metrics as JaxMetrics
 
 from dsort_tpu_torch import cli
 from dsort_tpu_torch.config import JobConfig
+from dsort_tpu_torch.models import pipelines
 from dsort_tpu_torch.parallel import sample_sort as tss
 from dsort_tpu_torch.scheduler import FaultInjector, JobFailedError, SpmdScheduler
 from dsort_tpu_torch.scheduler import fault
@@ -388,9 +389,10 @@ def test_mid_ring_device_loss_reforms_and_matches(mesh8, exchange):
 
 
 def test_cli_run_through_the_scheduler_matches_jax(tmp_path):
-    """``cli run`` sorts through the scheduler: byte-identical to ``dsort run
-    --mode spmd``, and ``--journal`` holds the fault-free timeline in the
-    reference's record format."""
+    """``cli run`` sorts through the scheduler — a job this small on its
+    fused route, under the scheduler's bounded wait, as ``dsort run --mode
+    spmd`` routes it: byte-identical output, and ``--journal`` holds the
+    fault-free timeline in the reference's record format."""
     x = gen_uniform(7_000, seed=31)
     src, ref, out, jpath = (tmp_path / n for n in ("in.txt", "ref.txt", "out.txt", "j.jsonl"))
     src.write_text("".join(f"{v}\n" for v in x.tolist()))
@@ -402,21 +404,25 @@ def test_cli_run_through_the_scheduler_matches_jax(tmp_path):
     assert all(list(r)[:4] == ["seq", "t", "mono", "type"] for r in recs)
     types = [r["type"] for r in recs]
     assert types[0] == "job_start" and types[-1] == "result_fetch"
-    assert types.count("attempt_start") == 1 and types.index("job_done") == len(types) - 2
+    assert types.count("attempt_start") == 0 and types.index("job_done") == len(types) - 2
     assert not FAULT_EVENTS & set(types)
-    assert recs[0]["mode"] == "spmd" and recs[0]["n_keys"] == 7_000
+    assert recs[0]["mode"] == "fused" and recs[0]["n_keys"] == 7_000
+    assert recs[-2]["counters"]["fused_small_jobs"] == 1
 
 
 def test_cli_run_journal_written_when_the_job_fails(monkeypatch, tmp_path):
     src, jpath = tmp_path / "in.txt", tmp_path / "j.jsonl"
     src.write_text("3\n1\n2\n")
 
-    def broken(self, data, metrics=None):
+    def broken(*args, **kwargs):
         raise RuntimeError("CUDA error: device-side assert triggered")
 
+    # A program error on the fused route propagates (no fallback); so does
+    # one inside the scheduler's attempt.
+    monkeypatch.setattr(pipelines, "fused_sort_small", broken)
     monkeypatch.setattr(tss.SampleSort, "sort", broken)
     with pytest.raises(RuntimeError, match="device-side assert"):
         cli.main(["run", str(src), "-o", str(tmp_path / "o.txt"), "--device", "cpu",
                   "--journal", str(jpath)])
     types = [r["type"] for r in EventLog.read_jsonl(str(jpath))]
-    assert types == ["job_start", "attempt_start", "job_failed"]
+    assert types == ["job_start", "job_failed"]
