@@ -87,7 +87,23 @@ Phases (any failure raises, so the exit code is non-zero):
    dispatch, a ``recv`` failure, a 3 s hang detected at the 1 s wait, every
    worker dead; host-to-host medians in turns of the fused route against
    ``SpmdScheduler.sort`` at 2^14, 2^17 and 2^20 − 1 and of the task pool
-   against it at 2^24; the task pool's time to recover per drill.
+   against it at 2^24; the task pool's time to recover per drill;
+8. device-resident results (`device_resident`): ``sort(keep_on_device=True)``
+   of phase 4's 2^26 int32 under ``alltoall``, ``ring`` and ``fused`` and
+   2^24 zipf int64, each with its launches, at most 4 KiB copied to the host
+   before ``to_host()`` (counted per aten copy), ``validate_on_device()``
+   (at most 64 bytes back) equal to the input's host checksum, ``to_host()``
+   equal to numpy's bits and lengths equal to ``sort_ranges``'; one traced
+   ``fused`` keep_on_device sort; host-to-host medians in turns (A B C C B
+   A) of ``sort()``, keep_on_device plus ``validate_on_device()`` and keep
+   plus ``to_host()``; the validator alone by CUDA events against its bound;
+   the validator on rows built on the card for all eight integer dtypes,
+   with an in-row and a boundary break; ``fused_sort_small(keep_on_device=
+   True)`` at 2^16 and 2^20 − 1 read from another thread; the re-run drill
+   (a later job loses worker 2, the handle re-runs once at ``to_host()``);
+   ``cli run --device-resident`` on phase 4's file against its ``cli run``,
+   ``cli validate --against`` (0, then 1 with two lines swapped), ``cli
+   gen`` of 2^20 lines.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -932,6 +948,289 @@ def small_jobs_and_taskpool(card, hold, reset, counts, launched, keys_path, src,
         f"int32 job {pool_launches}")
 
 
+class HostCopies:
+    """Counts the bytes that aten copies from ``device_type`` to the host
+    move (``.cpu()``, ``.tolist()``, ``.item()``) on this thread while
+    entered: the device-to-host traffic of a device-resident sort."""
+
+    def __init__(self, device_type: str = "cuda"):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types_, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                src = args[0] if args else None
+                if isinstance(src, torch.Tensor) and src.device.type == device_type:
+                    if func is torch.ops.aten._local_scalar_dense.default:
+                        counter.add(src.element_size())
+                    elif (func is torch.ops.aten._to_copy.default
+                          and isinstance(out, torch.Tensor) and out.device.type == "cpu"):
+                        counter.add(out.nbytes)
+                return out
+
+        self.mode = _Mode()
+        self.bytes = self.copies = 0
+
+    def add(self, nbytes: int) -> None:
+        self.bytes += nbytes
+        self.copies += 1
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def device_resident(card, ss, x32, ref32, z, refz, reset, launched, keys_path, src, want_bytes,
+                    work, cli_wall_ms: float) -> None:
+    """Phase 8: device-resident results on the card.  ``ss`` is phase 4's
+    `SampleSort(VirtualMesh(8))`, ``x32`` / ``z`` its 2^26 int32 / 2^24
+    zipf int64 keys with numpy's sorts; ``src`` its 10^6-line file,
+    ``want_bytes`` that file's sorted bytes and ``cli_wall_ms`` phase 4's
+    ``cli run`` wall on it."""
+    import threading
+
+    from dsort_tpu_torch import cli
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.device import resolve_device
+    from dsort_tpu_torch.models import pipelines as pl
+    from dsort_tpu_torch.models.validate import _multiset, validate_device_result
+    from dsort_tpu_torch.ops.float_order import from_signed_keys, to_signed_keys
+    from dsort_tpu_torch.ops.local_sort import sentinel_for
+    from dsort_tpu_torch.parallel import DeviceSortResult
+    from dsort_tpu_torch.scheduler import FaultInjector, SpmdScheduler
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    dev = resolve_device()
+
+    def checksum(a: np.ndarray) -> int:
+        return _multiset(a, len(a), a.dtype.itemsize)
+
+    t0 = time.perf_counter()
+    ck = {"int32": checksum(x32), "int64": checksum(z)}
+    log(f"device-resident: host _multiset of the inputs {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # 8.1 keep_on_device at full size: launches, at most 4 KiB copied to the
+    # host before to_host(), the checksum, the bits, the lengths.
+    for label, data, ref, exchange in (("uniform int32 n=2^26", x32, ref32, "alltoall"),
+                                       ("uniform int32 n=2^26", x32, ref32, "ring"),
+                                       ("uniform int32 n=2^26", x32, ref32, "fused"),
+                                       ("zipf(1.3) int64 n=2^24", z, refz, "alltoall")):
+        tag = f"keep_on_device {label} exchange={exchange}"
+        need = keys_path | ({"ring_exchange_kernel"} if exchange == "fused" else set())
+        reset()
+        with HostCopies() as before:
+            t0 = time.perf_counter()
+            h = ss.sort(data, keep_on_device=True, exchange=exchange)
+            sort_ms = (time.perf_counter() - t0) * 1e3
+        got = launched(tag, need)
+        if before.bytes > 4096:
+            raise AssertionError(f"{tag}: {before.bytes} bytes copied to the host before to_host()")
+        with HostCopies() as val:
+            rep = h.validate_on_device()
+        if val.bytes > 64:
+            raise AssertionError(f"{tag}: validate_on_device copied {val.bytes} bytes to the host")
+        want = ck[data.dtype.name]
+        if not rep.sorted_ok or rep.records != len(data) or rep.checksum != want:
+            raise AssertionError(f"{tag}: {rep} against checksum {want:016x}")
+        if not same_bits(h.to_host(), ref):
+            raise AssertionError(f"{tag}: to_host() differs from np.sort")
+        lengths = [len(r) for r in ss.sort_ranges(data, exchange=exchange)]
+        if list(h.shard_lengths) != lengths:
+            raise AssertionError(f"{tag}: shard_lengths {h.shard_lengths} != sort_ranges' {lengths}")
+        log(f"main {tag}: sorted, checksum {rep.checksum:016x} = the input's, to_host() equal to "
+            f"np.sort, shard_lengths = sort_ranges' {lengths}; {sort_ms:.1f} ms to the handle; "
+            f"device-to-host before to_host() {before.bytes} bytes in {before.copies} copies, "
+            f"validate_on_device {val.bytes} bytes in {val.copies}; launches {got} [{card}]")
+        del h
+
+    # 8.2 one traced keep_on_device sort: the path's kernels by their launch
+    # counts and in the trace, and the copies the trace shows.
+    keep = {}
+    fused_path = keys_path | {"ring_exchange_kernel"}
+    reset()
+    by_name = profile(lambda: keep.update(h=ss.sort(x32, keep_on_device=True, exchange="fused")),
+                      "SampleSort int32 n=2^26 fused keep_on_device", card)
+    got = launched("traced keep_on_device fused sort", fused_path)
+    for kname in sorted(fused_path):
+        k_ms, k_n = traced(by_name, kname)
+        log(f"traced {kname} in the keep_on_device fused sort: {k_ms:.3f} ms over {k_n} launches "
+            f"in the trace, {got[kname]} by its launch count [{card}]")
+    if any(not traced(by_name, k)[1] for k in fused_path):
+        log("  the trace's device events: " + "; ".join(
+            f"{name[:60]} x{v[1]}" for name, v in sorted(by_name.items())))
+    dtoh = [(name, v) for name, v in by_name.items() if "DtoH" in name]
+    log(f"traced device-to-host copies in the keep_on_device fused sort: "
+        f"{[(name, round(v[0], 3), v[1]) for name, v in dtoh]} [{card}]")
+    profile(lambda: keep["h"].validate_on_device(), "validate_on_device int32 n=2^26 (8 rows)",
+            card)
+    del keep
+
+    # 8.3 host to host in turns (A B C C B A): sort(); keep_on_device plus
+    # validate_on_device(); keep_on_device plus to_host().
+    def host_sort():
+        return ss.sort(x32)
+
+    def keep_validate():
+        return ss.sort(x32, keep_on_device=True).validate_on_device()
+
+    def keep_to_host():
+        return ss.sort(x32, keep_on_device=True).to_host()
+
+    arms = (host_sort, keep_validate, keep_to_host)
+    for fn in arms:
+        fn()
+    turns = []
+    for fn in arms + arms[::-1]:
+        turns += [(fn.__name__, t) for t in host_times(fn, 2)]
+    med = {}
+    for fn in arms:
+        ts = [t for k, t in turns if k == fn.__name__]
+        med[fn.__name__] = float(np.median(ts))
+        log(f"time device-resident int32 n=2^26 alltoall {fn.__name__} host-to-host: "
+            f"{med[fn.__name__]:.3f} ms median of {len(ts)} (runs {[round(t, 3) for t in ts]}) "
+            f"[{card}]")
+    log(f"  keep_validate / host_sort {med['keep_validate'] / med['host_sort']:.3f}, "
+        f"keep_to_host / host_sort {med['keep_to_host'] / med['host_sort']:.3f} [{card}]")
+    for label, data in (("int32 n=2^26", x32), ("zipf(1.3) int64 n=2^24", z)):
+        h = ss.sort(data, keep_on_device=True)
+        v_ms = cuda_ms(lambda: validate_device_result(h))
+        b_ms, b_by = bound_ms(data.nbytes)
+        log(f"time validate_on_device {label} ({h.num_shards} x {h._rows().shape[1]} rows, "
+            f"plain PyTorch): {v_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: the keys read once), "
+            f"{v_ms / b_ms:.1f}x the bound [{card}]")
+        m = Metrics()
+        ss.sort(data, m, keep_on_device=True)
+        log(f"phases keep_on_device {label} alltoall: {json.dumps(m.summary())} [{card}]")
+        del h
+
+    # 8.4 the validator on tensors built on the card, every integer dtype:
+    # the checksum against the host's, an in-row and a boundary break.
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lengths = [1 << 18, (1 << 18) - 5, 0, 1000, 1 << 18, 7, 1 << 18, 3]
+    for dtype in (torch.int32, torch.int64, torch.uint32, torch.uint64,
+                  torch.int8, torch.uint8, torch.int16, torch.uint16):
+        width = torch.empty(0, dtype=dtype).element_size()
+        bits = torch.randint(-(1 << 31), (1 << 31) - 1, (P * (1 << 18) * width // 4,),
+                             dtype=torch.int32, device=dev, generator=gen)
+        s = torch.sort(to_signed_keys(bits.view(torch.uint8).view(dtype))).values.view(P, -1)
+        pos = torch.arange(s.shape[1], device=dev)
+        cnt = torch.tensor(lengths, device=dev)
+        s = torch.where(pos < cnt.unsqueeze(1), s, sentinel_for(s.dtype))
+        rows = from_signed_keys(s, dtype)
+        host = rows.cpu().numpy()
+        want = checksum(np.concatenate([host[i, :c] for i, c in enumerate(lengths)]))
+        rep = DeviceSortResult(rows, lengths, sum(lengths)).validate_on_device()
+        if not rep.sorted_ok or rep.checksum != want or rep.records != sum(lengths):
+            raise AssertionError(f"validator {dtype}: {rep} against {want:016x}")
+        # Breaks made in the signed carrier: PyTorch's unsigned 16-, 32- and
+        # 64-bit dtypes have only partial operator support.
+        last = lengths[0] - 1
+        if bool((s[0, 0] == s[0, last]).item()):
+            raise AssertionError(f"validator {dtype}: row 0 is constant")
+        broken = s.clone()
+        broken[0, [0, last]] = s[0, [last, 0]]
+        order = [7, 1, 2, 3, 4, 5, 6, 0]
+        for what, r, c in (("in-row break", broken, lengths),
+                           ("boundary break", s[order], [lengths[i] for i in order])):
+            r = from_signed_keys(r.contiguous(), dtype)
+            bad = DeviceSortResult(r, c, sum(c)).validate_on_device()
+            if bad.sorted_ok or bad.checksum != want:
+                raise AssertionError(f"validator {dtype} {what}: {bad}")
+        log(f"validator {str(dtype).removeprefix('torch.')} on the card (8 rows, lengths "
+            f"{lengths}): checksum {rep.checksum:016x} = the host's; in-row and boundary "
+            f"breaks caught [{card}]")
+
+    # 8.5 fused_sort_small(keep_on_device=True): no download, no synchronize;
+    # the handle read from another thread.
+    rng = np.random.default_rng(18)
+    for n in (1 << 16, (1 << 20) - 1):
+        x = random_keys(rng, n, np.int32)
+        reset()
+        t0 = time.perf_counter()
+        h = pl.fused_sort_small(x, keep_on_device=True)
+        handle_ms = (time.perf_counter() - t0) * 1e3
+        got = launched(f"fused_sort_small keep_on_device n={n}", keys_path)
+        box = {}
+        reader = threading.Thread(target=lambda: box.update(rep=h.validate_on_device(),
+                                                            host=h.to_host()))
+        reader.start()
+        reader.join(timeout=120)
+        if reader.is_alive() or "host" not in box:
+            raise AssertionError(f"fused handle n={n}: the reading thread failed")
+        if (not box["rep"].sorted_ok or box["rep"].checksum != checksum(x)
+                or not same_bits(box["host"], np.sort(x)) or h.label != "fused"):
+            raise AssertionError(f"fused handle n={n}: {box['rep']}")
+        log(f"main fused_sort_small keep_on_device int32 n={n}: read from another thread, "
+            f"checksum and bits equal; {handle_ms:.3f} ms to the handle; launches {got} [{card}]")
+
+    # 8.6 the re-run drill: a later job loses worker 2, the handle is
+    # invalidated, and to_host() re-runs it once.
+    inj = FaultInjector()
+    sched = SpmdScheduler(P, job=JobConfig(settle_delay_s=0.01), injector=inj)
+    journal = EventLog()
+    m = Metrics(journal=journal)
+    h = sched.sort(x32, m, keep_on_device=True)
+    inj.fail_once(2, "spmd")
+    sched.sort(x32[: 1 << 20], m)
+    types_ = journal.types()
+    if h.valid or m.counters["mesh_reforms"] != 1 or not (
+            types_.index("mesh_reform") < types_.index("device_handle_invalidated")):
+        raise AssertionError(f"re-run drill: the handle was not invalidated after the re-form "
+                             f"{types_}")
+    reset()
+    t0 = time.perf_counter()
+    out = h.to_host()
+    rerun_ms = (time.perf_counter() - t0) * 1e3
+    got = launched("re-run of an invalidated handle", keys_path)
+    rep = h.validate_on_device()
+    if (not same_bits(out, ref32) or m.counters["device_handle_reruns"] != 1 or not h.valid
+            or rep.checksum != ck["int32"]):
+        raise AssertionError(f"re-run drill: {dict(m.counters)} {rep}")
+    log(f"device-resident re-run drill int32 n=2^26: invalidated after mesh_reform, to_host() "
+        f"re-ran once (device_handle_reruns 1) in {rerun_ms:.1f} ms (re-sort on 8 workers and "
+        f"the copy), bits and checksum equal; launches {got} [{card}]")
+    del h, out
+
+    # 8.7 the CLI: run --device-resident, validate, gen.
+    dst, jpath = work / "output_device_resident.txt", work / "journal_device_resident.jsonl"
+    reset()
+    t0 = time.perf_counter()
+    if cli.main(["run", str(src), "-o", str(dst), "--device-resident",
+                 "--journal", str(jpath)]) != 0:
+        raise AssertionError("cli run --device-resident failed")
+    wall = (time.perf_counter() - t0) * 1e3
+    got = launched("cli run --device-resident", keys_path)
+    recs = [r["type"] for r in EventLog.read_jsonl(str(jpath))]
+    if (dst.read_bytes() != want_bytes or recs.count("result_fetch") != 1
+            or "device_validate" not in recs):
+        raise AssertionError(f"cli run --device-resident: output or journal wrong {recs}")
+    log(f"main cli run --device-resident 10^6 lines: byte-identical, {wall:.1f} ms wall against "
+        f"cli run's {cli_wall_ms:.1f} ms (phase 4, fused route), launches {got} [{card}]")
+    if cli.main(["validate", str(dst), "--against", str(src)]) != 0:
+        raise AssertionError("cli validate --against rejected a sorted output")
+    lines = dst.read_bytes().split(b"\n")
+    i = next(i for i in range(len(lines) // 2, len(lines) - 1) if lines[i] != lines[i + 1])
+    lines[i], lines[i + 1] = lines[i + 1], lines[i]
+    swapped = work / "output_swapped.txt"
+    swapped.write_bytes(b"\n".join(lines))
+    if cli.main(["validate", str(swapped), "--against", str(src)]) != 1:
+        raise AssertionError("cli validate accepted two swapped lines")
+    gen_path = work / "gen.txt"
+    if cli.main(["gen", str(1 << 20), "-o", str(gen_path)]) != 0:
+        raise AssertionError("cli gen failed")
+    n_lines = gen_path.read_bytes().count(b"\n")
+    if n_lines != 1 << 20:
+        raise AssertionError(f"cli gen wrote {n_lines} lines")
+    log(f"cli validate --against: 0 on the output, 1 with lines {i} and {i + 1} swapped; cli gen "
+        f"wrote {n_lines} lines [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1358,6 +1657,7 @@ def main() -> int:
     if (recs[0]["mode"] != "fused" or recs[-2]["counters"].get("fused_small_jobs") != 1
             or got.get("ring_exchange_kernel")):
         raise AssertionError(f"cli run 10^6 lines did not take the fused route: {recs[0]} {got}")
+    cli_wall_ms = wall * 1e3
     log(f"main cli run 10^6 lines: byte-identical, {wall * 1e3:.1f} ms wall, fused route "
         f"(fused_small_jobs 1), launches {got}")
     reset()
@@ -1799,6 +2099,10 @@ def main() -> int:
 
     # 7. the small-job route, cli run --mode, the task pool ------------------
     small_jobs_and_taskpool(card, hold, reset, counts, launched, keys_path, src, want_bytes, work)
+
+    # 8. device-resident results and validation ------------------------------
+    device_resident(card, ss, x32, ref32, z, refz, reset, launched, keys_path, src, want_bytes,
+                    work, cli_wall_ms)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

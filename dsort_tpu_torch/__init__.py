@@ -7,12 +7,13 @@ input.  It imports ``torch`` and ``numpy`` only — nothing of JAX and
 nothing of ``dsort_tpu``.
 
 Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
-the fused small-job route, the task pool, local — and the in-core ``dsort
-terasort``):
+the fused small-job route, the task pool, local — and ``--device-resident``;
+the in-core ``dsort terasort``; ``dsort validate`` and ``dsort gen``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig`` (the fields the sample sort reads)
-  data/                ``partition`` / ``pad_to_shards``; int and TeraSort IO
+  data/                ``partition`` / ``pad_to_shards``; int and TeraSort IO,
+                       the seeded generators
   ops/float_order.py   order-preserving float <-> signed-int bijection
   ops/local_sort.py    ``sort_keys`` (torch.sort), kernel dispatch, padding,
                        the key+payload sorts
@@ -26,16 +27,23 @@ terasort``):
   ops/errors.py        ``KernelLaunchError`` and the CUDA status names
   parallel/mesh.py     ``VirtualMesh``: P shards as rows of one tensor
   parallel/exchange.py the ring schedule: measured caps, shifts, merge tower
-  parallel/sample_sort.py  ``SampleSort`` (splitters, buckets, exchange, merge)
+  parallel/sample_sort.py  ``SampleSort`` (splitters, buckets, exchange, merge;
+                       ``keep_on_device``)
+  parallel/device_result.py  ``DeviceSortResult``: sorted keys left on the
+                       device (``to_host``, ``consume``, ``validate_on_device``)
   models/pipelines.py  ``fused_sort_small`` (the small-job route),
                        ``GatherMergeSort``, ``local_pipeline``, ``pad_rung``
+  models/validate.py   order + FNV-1a multiset checksum: the file validators
+                       and the on-device one
   scheduler/           ``SpmdScheduler`` (bounded waits, probes, re-form over
-                       the survivors), the task-pool ``Scheduler`` and
+                       the survivors, device-resident handles invalidated on
+                       re-form), the task-pool ``Scheduler`` and
                        ``DeviceExecutor``, ``FaultInjector``, ``WorkerTable``,
                        the CUDA error classifier
   utils/events.py      ``EventLog``: the JSONL event journal
   cli.py               ``python -m dsort_tpu_torch.cli {run,terasort} IN -o OUT``
-                       (``run --mode spmd|taskpool|local``)
+                       (``run --mode spmd|taskpool|local``, ``run
+                       --device-resident``), ``validate``, ``gen``
 """
 
 from dsort_tpu_torch.config import ConfigError, JobConfig

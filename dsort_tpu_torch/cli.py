@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,terasort} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,terasort,validate,gen} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -21,7 +21,11 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   * ``local``: `fused_sort_small` at any size.
 
   ``--journal J`` writes the job's `EventLog` as JSONL once the job ends,
-  also when it failed, in every mode;
+  also when it failed, in every mode.  ``--device-resident`` (``--mode
+  spmd`` only) sorts through `SpmdScheduler` at every size with
+  ``keep_on_device=True``, validates the handle on the device (order, and
+  its checksum against the input's host `_multiset`), then copies it to
+  the host for the output file; exit 1 when either check fails;
 - ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records
   through `SampleSort.sort_kv` (the reference's ``cmd_terasort`` does not
   use the scheduler either), ordered by the full 10-byte key (8-byte
@@ -30,12 +34,21 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   takes no ``--dtype``, as in the reference.
 
 Both take ``--kernel`` (`JobConfig.local_kernel`) and ``--merge-kernel``
-(`JobConfig.merge_kernel`), as the JAX package's common flags do.
+(`JobConfig.merge_kernel`), as the JAX package's common flags do.  Two
+host tools run no sort and touch no device, as ``dsort``'s do:
+
+- ``validate INPUT [--against FILE] [--terasort|--binary] [--dtype D]``:
+  order plus the permutation checksum (`models.validate`); prints one JSON
+  line and exits 0 only when both hold;
+- ``gen N -o FILE [--dist uniform|zipf|terasort] [--dtype D] [--zipf-a A]
+  [--seed S] [--format text|bin]``: the reference's seeded inputs, byte for
+  byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import threading
 import time
@@ -91,10 +104,32 @@ def _parser() -> argparse.ArgumentParser:
                           "scheduler), taskpool or local")
     run.add_argument("--journal", default=None,
                      help="write the job's structured event journal (JSONL) here")
+    run.add_argument("--device-resident", action="store_true",
+                     help="keep the sorted keys on the device and validate them there "
+                          "(order + multiset checksum); the output file write is the "
+                          "only device-to-host copy of keys")
     _common(
         sub.add_parser("terasort", help="sort a binary 100-byte-record file"),
         "terasort_out.bin",
     )
+    gen = sub.add_parser("gen", help="generate synthetic input files")
+    gen.add_argument("n", type=int)
+    gen.add_argument("-o", "--output", required=True)
+    gen.add_argument("--dist", default="uniform", choices=["uniform", "zipf", "terasort"])
+    gen.add_argument("--dtype", default="int32")
+    gen.add_argument("--zipf-a", type=float, default=1.3)
+    gen.add_argument("--seed", type=int, default=0)
+    gen.add_argument("--format", default="text", choices=["text", "bin"],
+                     help="'bin' streams raw binary keys")
+    val = sub.add_parser("validate",
+                         help="validate a sort output (order + permutation checksum)")
+    val.add_argument("input")
+    val.add_argument("--against", help="original input file to prove the permutation")
+    val.add_argument("--terasort", action="store_true",
+                     help="treat files as binary 100-byte-record TeraSort data")
+    val.add_argument("--binary", action="store_true",
+                     help="treat files as raw binary key arrays (streamed)")
+    val.add_argument("--dtype", default="int32")
     return ap
 
 
@@ -205,18 +240,54 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
     raise SystemExit(f"unknown mode {mode!r}")
 
 
+def _make_device_sorter(job: JobConfig, workers: int = 8, device=None):
+    """``run --device-resident``'s sorter ``(data, metrics) -> (out, ok)``:
+    `SpmdScheduler` at every size (not the fused route), the handle
+    validated on the device, the input's checksum on the host, then the
+    handle's one copy of keys to the host (which journals
+    ``result_fetch``)."""
+    from dsort_tpu_torch.models.validate import _multiset
+    from dsort_tpu_torch.scheduler import SpmdScheduler
+
+    sched = SpmdScheduler(workers, device, job)
+
+    def sorter(data, metrics):
+        handle = sched.sort(data, metrics=metrics, keep_on_device=True)
+        rep = handle.validate_on_device()
+        in_sum = _multiset(data, len(data), data.dtype.itemsize)
+        perm_ok = rep.records == len(data) and rep.checksum == in_sum
+        log.info(
+            "device-resident: %d keys, on-device validate: sorted=%s permutation=%s "
+            "checksum=%016x", len(data), rep.sorted_ok, perm_ok, rep.checksum,
+        )
+        return handle.to_host(), rep.sorted_ok and perm_ok
+
+    return sorter
+
+
 def _run(args, job: JobConfig) -> int:
     from dsort_tpu_torch.data import ingest
     from dsort_tpu_torch.utils.events import EventLog
     from dsort_tpu_torch.utils.metrics import Metrics
 
-    sorter = _make_sorter(job, args.mode, args.workers, args.device)
+    if args.device_resident:
+        if args.mode != "spmd":
+            raise SystemExit("--device-resident requires --mode spmd")
+        sorter = _make_device_sorter(job, args.workers, args.device)
+    else:
+        host_sorter = _make_sorter(job, args.mode, args.workers, args.device)
+
+        def sorter(data, metrics):
+            out = host_sorter(data, metrics)
+            metrics.event("result_fetch", n_keys=len(out))
+            return out, True
+
     journal = EventLog() if args.journal else None
     try:
         keys = ingest.read_ints_file(args.input, args.dtype)
         metrics = Metrics(journal=journal)
         try:
-            out = sorter(keys, metrics)
+            out, ok = sorter(keys, metrics)
         except BaseException as e:
             # The schedulers journal job_failed only on their clean failure
             # path (no live worker); close the job on any other escape too.
@@ -225,18 +296,88 @@ def _run(args, job: JobConfig) -> int:
                 counters=dict(metrics.counters),
             )
             raise
-        metrics.event("result_fetch", n_keys=len(out))
         ingest.write_ints_file(args.output, out)
     finally:
         # The journal exists to answer "what happened": a failed job's
         # fault timeline lands on disk too.
         if journal is not None:
             journal.flush_jsonl(args.journal)
+    if not ok:
+        log.error("on-device validation FAILED for %s", args.input)
+        return 1
     return 0
+
+
+def _gen(args) -> int:
+    """``dsort gen``: the reference's seeded input files, byte for byte."""
+    import numpy as np
+
+    from dsort_tpu_torch.data import ingest
+
+    if args.dist == "terasort":
+        if args.format == "bin":
+            # TeraSort files are always binary records; a --format bin here
+            # would be silently ignored, so it is refused.
+            raise SystemExit(
+                "--format bin is for raw key files; --dist terasort always "
+                "writes binary 100-byte records (drop --format)"
+            )
+        ingest.gen_terasort_file(args.output, args.n, seed=args.seed)
+        log.info("wrote %d terasort records to %s", args.n, args.output)
+        return 0
+    if args.format == "bin":
+        if args.dist != "uniform":
+            raise SystemExit("--format bin supports --dist uniform only")
+        ingest.gen_uniform_bin_file(args.output, args.n, dtype=np.dtype(args.dtype),
+                                    seed=args.seed)
+        log.info("wrote %d %s binary keys to %s", args.n, args.dtype, args.output)
+        return 0
+    if args.dist == "uniform":
+        data = ingest.gen_uniform(args.n, dtype=np.dtype(args.dtype), seed=args.seed)
+    else:
+        data = ingest.gen_zipf(args.n, a=args.zipf_a, dtype=np.dtype(args.dtype), seed=args.seed)
+    ingest.write_ints_file(args.output, data)
+    log.info("wrote %d %s keys (%s) to %s", args.n, args.dtype, args.dist, args.output)
+    return 0
+
+
+def _validate(args) -> int:
+    """``dsort validate``: order + permutation of ``--against``; one JSON
+    line, exit 0 only when both hold."""
+    import numpy as np
+
+    from dsort_tpu_torch.models import validate as v
+
+    dtype = np.dtype(args.dtype)
+    if args.terasort:
+        rep = v.validate_terasort_file(args.input)
+    elif args.binary:
+        rep = v.validate_bin_file(args.input, dtype=dtype)
+    else:
+        rep = v.validate_ints_file(args.input, dtype=dtype)
+    result = {"records": rep.records, "sorted": rep.sorted_ok, "checksum": f"{rep.checksum:016x}"}
+    if rep.first_violation is not None:
+        result["first_violation"] = rep.first_violation
+    ok = rep.sorted_ok
+    if args.against:
+        if args.terasort:
+            n_in, sum_in = v.checksum_terasort_file(args.against)
+        elif args.binary:
+            n_in, sum_in = v.checksum_bin_file(args.against, dtype=dtype)
+        else:
+            n_in, sum_in = v.checksum_ints_file(args.against, dtype=dtype)
+        result["permutation_of_input"] = n_in == rep.records and sum_in == rep.checksum
+        ok = ok and result["permutation_of_input"]
+    print(json.dumps(result))
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.cmd == "gen":
+        return _gen(args)
+    if args.cmd == "validate":
+        return _validate(args)
     job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel,
                     **({"exchange": args.exchange} if args.exchange else {}))
     if args.cmd == "run":

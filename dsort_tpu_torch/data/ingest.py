@@ -16,7 +16,9 @@ text IO is not ported yet), byte-compatible with the reference:
   raise `ValueError` for every dtype, as in the reference.  Float dtypes
   read and write round-trip decimal text;
 - TeraSort's 100-byte binary records (`read_terasort_file`,
-  `write_terasort_file`, `gen_terasort`).
+  `write_terasort_file`, `gen_terasort`, `gen_terasort_file`);
+- the seeded generators of ``gen`` (`gen_uniform`, `gen_uniform_bin_file`,
+  `gen_zipf`), which give the reference's bytes for the same seed.
 """
 
 from __future__ import annotations
@@ -106,6 +108,35 @@ def write_ints_file(path: str | os.PathLike, data: np.ndarray) -> None:
         f.write(text.encode("ascii"))
 
 
+def gen_uniform(n: int, dtype=np.int32, seed: int = 0) -> np.ndarray:
+    """Uniform random keys over the dtype's range (its maximum excluded)."""
+    rng = np.random.default_rng(seed)
+    dtype = np.dtype(dtype)
+    info = np.iinfo(dtype)
+    return rng.integers(info.min, info.max, size=n, dtype=dtype, endpoint=False)
+
+
+def gen_uniform_bin_file(
+    path: str | os.PathLike, n: int, dtype=np.int32, seed: int = 0, chunk: int = 1 << 24,
+) -> None:
+    """Stream ``n`` uniform keys to a raw binary file, ``chunk`` keys at a
+    time: the binary twin of `gen_uniform` for jobs too big for text."""
+    rng = np.random.default_rng(seed)
+    dtype = np.dtype(dtype)
+    info = np.iinfo(dtype)
+    with open(path, "wb") as f:
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            f.write(rng.integers(info.min, info.max, size=m, dtype=dtype, endpoint=False).tobytes())
+
+
+def gen_zipf(n: int, a: float = 1.3, dtype=np.int64, seed: int = 0) -> np.ndarray:
+    """Zipf-skewed keys, clipped (not wrapped) into ``dtype``'s range."""
+    rng = np.random.default_rng(seed)
+    vals = rng.zipf(a, size=n)
+    return np.minimum(vals, np.iinfo(dtype).max).astype(dtype)
+
+
 RECORD_BYTES = 100  # TeraSort record: 10-byte key + 90-byte value
 
 
@@ -156,3 +187,9 @@ def gen_terasort(
     rng = np.random.default_rng(seed)
     raw = rng.integers(0, 256, size=(n, key_bytes + payload_bytes), dtype=np.uint8)
     return _pack_be64(raw[:, :8]), raw[:, 8:]
+
+
+def gen_terasort_file(path: str | os.PathLike, n: int, seed: int = 0) -> None:
+    """Write a binary TeraSort input file of ``n`` seeded 100-byte records."""
+    keys, payload = gen_terasort(n, seed=seed)
+    write_terasort_file(path, keys, payload)

@@ -1,7 +1,8 @@
-"""Sort pipelines: the fused small-job route and the gather-merge sort.
+"""Sort pipelines (the fused small-job route, the gather-merge sort) and
+sort-output validation.
 
-Counterpart of ``dsort_tpu/models``: ``pipelines`` is ported; the external
-sort, the wave pipeline and ``validate`` are not yet.
+Counterpart of ``dsort_tpu/models``: ``pipelines`` and ``validate`` are
+ported; the external sort and the wave pipeline are not yet.
 """
 
 from dsort_tpu_torch.models.pipelines import (  # noqa: F401

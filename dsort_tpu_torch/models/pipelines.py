@@ -16,8 +16,7 @@ Counterpart of ``dsort_tpu/models/pipelines.py``:
 Not ported: the reference's ``SPMD_CONTRACT`` dict (it feeds the JAX
 package's SPMD lint, which reads JAX programs), and the compile ledger
 (``instrument_jit`` / ``LEDGER`` of ``obs/prof``): the journal of a fused
-job carries no ``variant_compiled`` event.  ``keep_on_device=True``
-(device-resident results) raises, as `scheduler.SpmdScheduler.sort` does.
+job carries no ``variant_compiled`` event.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from dsort_tpu_torch.ops.float_order import (
 )
 from dsort_tpu_torch.ops.local_sort import sort_padded
 from dsort_tpu_torch.ops.merge import merge_shards_device, merge_sorted_host
+from dsort_tpu_torch.parallel.device_result import DeviceSortResult
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 from dsort_tpu_torch.utils.metrics import Metrics, PhaseTimer
 
@@ -96,13 +96,19 @@ def fused_sort_small(
     ``assemble``.  Float keys ride the order-preserving signed carrier
     (NaNs last, canonical); unsigned and narrow keys sort as their signed
     carrier.  Runs on ``cuda`` unless ``device="cpu"``.
+
+    ``keep_on_device=True`` drops the download: one upload and the padded
+    row's sort, then a `parallel.device_result.DeviceSortResult` of one
+    shard of length ``n`` (``label="fused"``), returned without waiting on
+    the sort — the handle's first consumer is the completion barrier.
+    Integer keys only.
     """
-    if keep_on_device:
-        raise NotImplementedError(
-            "keep_on_device (device-resident results) is not yet ported to dsort_tpu_torch"
-        )
     dev = resolve_device(device)
     data = np.asarray(data)
+    if keep_on_device and data.dtype.kind == "f":
+        raise TypeError(
+            "keep_on_device supports integer keys only; use fused_sort_small() for floats"
+        )
     if data.dtype.kind == "f":
         return sort_float_keys_via_uint(
             lambda d, m: fused_sort_small(d, kernel, m, device=dev), data, metrics
@@ -111,15 +117,21 @@ def fused_sort_small(
     timer = PhaseTimer(metrics)
     n = len(data)
     if n == 0:
+        if keep_on_device:
+            empty = torch.from_numpy(data.copy()).to(dev)
+            return DeviceSortResult(empty, np.zeros(1, np.int64), 0, metrics, label="fused")
         return data.copy()
     with timer.phase("partition"):
         buf = pad_for_fused(data)
     with timer.phase("local_sort"), device_scope(dev):
         x = torch.from_numpy(buf).to(dev)
         out, _ = sort_padded(to_signed_keys(x), n, kernel)
-        out = from_signed_keys(out, x.dtype).cpu().numpy()
+        out = from_signed_keys(out, x.dtype)
+        host = None if keep_on_device else out.cpu().numpy()
+    if host is None:  # no download and no synchronize
+        return DeviceSortResult(out, np.array([n], np.int64), n, metrics, label="fused")
     with timer.phase("assemble"):
-        return out[:n]
+        return host[:n]
 
 
 class GatherMergeSort:

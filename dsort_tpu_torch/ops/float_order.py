@@ -146,3 +146,15 @@ def sort_narrow_keys_via_int32(sort_fn, keys: np.ndarray, *args, **kwargs):
     if isinstance(out, tuple):
         return (out[0].astype(keys.dtype),) + out[1:]
     return out.astype(keys.dtype)
+
+
+def narrow_from_int32(wide: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The device side of `sort_narrow_keys_via_int32`: int32 keys that hold
+    ``dtype`` values, with int32-sentinel pads, back to ``dtype`` on their
+    device.  Pads clamp to ``dtype``'s maximum first (a plain cast would
+    wrap the sentinel to -1); uint16 goes through its int16 carrier and a
+    view, since PyTorch's uint16 has only partial operator support."""
+    top = torch.iinfo(dtype).max
+    if dtype == torch.uint16:
+        return signed_to_unsigned((wide.clamp(max=top) - (1 << 15)).to(torch.int16), dtype)
+    return wide.clamp(max=top).to(dtype)

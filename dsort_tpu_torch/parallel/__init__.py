@@ -1,5 +1,6 @@
-"""The virtual mesh and the SPMD sample sort over it."""
+"""The virtual mesh, the SPMD sample sort over it, and device-resident results."""
 
+from dsort_tpu_torch.parallel.device_result import DeviceSortResult
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 
-__all__ = ["VirtualMesh"]
+__all__ = ["DeviceSortResult", "VirtualMesh"]

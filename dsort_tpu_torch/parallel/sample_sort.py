@@ -39,6 +39,7 @@ from dsort_tpu_torch.data.partition import pad_kv_to_shards, pad_to_layout, pad_
 from dsort_tpu_torch.ops.float_order import (
     from_signed_keys,
     is_narrow_int_dtype,
+    narrow_from_int32,
     sort_float_keys_via_uint,
     sort_narrow_keys_via_int32,
     to_signed_keys,
@@ -54,6 +55,7 @@ from dsort_tpu_torch.ops.local_sort import (
     sort_padded,
     sort_with_kernel,
 )
+from dsort_tpu_torch.parallel.device_result import DeviceSortResult
 from dsort_tpu_torch.parallel.exchange import (
     _bucket_bounds,
     _ring_exchange_kv_shard,
@@ -346,7 +348,7 @@ class SampleSort:
 
     def sort(
         self, data: np.ndarray, metrics: Metrics | None = None,
-        exchange: str | None = None,
+        keep_on_device: bool = False, exchange: str | None = None,
     ) -> np.ndarray:
         """Sort a host array; returns the globally sorted host array.
 
@@ -357,8 +359,23 @@ class SampleSort:
         and the fused ring take 32- and 64-bit keys.  ``exchange``
         (``alltoall``, ``ring`` or ``fused``) overrides `JobConfig.exchange`
         for this call; every choice gives the same bits.
+
+        ``keep_on_device=True`` returns a `parallel.device_result.
+        DeviceSortResult` instead: the merged rows stay on the device (the
+        one small stats copy is the completion barrier; no ``assemble``),
+        with lazy ``to_host()``, ``consume(fn)`` and
+        ``validate_on_device()``.  Integer keys only: a float job's rows
+        would hold the ordered-int carrier, which a next stage would
+        misread as values.
         """
         data = np.asarray(data)
+        if keep_on_device:
+            if data.dtype.kind == "f":
+                raise TypeError(
+                    "keep_on_device supports integer keys only (float keys ride as "
+                    "mapped ordered ints the consumer would misread); use sort() for floats"
+                )
+            return self._sort_device_impl(data, metrics, exchange)
         if data.dtype.kind == "f":
             return sort_float_keys_via_uint(self.sort, data, metrics, exchange=exchange)
         if is_narrow_int_dtype(data.dtype):
@@ -366,6 +383,27 @@ class SampleSort:
         if len(data) == 0:
             return data.copy()
         return self._sort_ranges_impl(data, metrics, exchange)[0]
+
+    def _sort_device_impl(
+        self, data: np.ndarray, metrics: Metrics | None, exchange: str | None
+    ):
+        """`keep_on_device` core: dispatch, then wrap the merged rows.
+
+        The rows come back from their signed carrier into the caller's
+        dtype (8- and 16-bit keys from int32, pads clamped to the dtype's
+        maximum) on the device, once.
+        """
+        metrics = metrics if metrics is not None else Metrics()
+        key_dtype = torch.from_numpy(np.empty(0, data.dtype)).dtype
+        if len(data) == 0:
+            empty = torch.empty(0, dtype=key_dtype, device=self.mesh.device)
+            return DeviceSortResult(empty, np.zeros(1, np.int64), 0, metrics)
+        narrow = is_narrow_int_dtype(data.dtype)
+        merged, c = self._dispatch_keys(
+            data.astype(np.int32) if narrow else data, PhaseTimer(metrics), metrics, exchange
+        )
+        keys = narrow_from_int32(merged, key_dtype) if narrow else from_signed_keys(merged, key_dtype)
+        return DeviceSortResult(keys, c, len(data), metrics)
 
     def sort_ranges(
         self, data: np.ndarray, metrics: Metrics | None = None,

@@ -47,8 +47,13 @@ once, and the job ends in a clean `JobFailedError`, never in a hang; only
 injected faults take out a single virtual worker.  Real per-device
 survivors come with a ``torch.distributed`` group of several cards.
 
-Not ported yet, each refused with a "not yet ported" error: device-resident
-results (``keep_on_device``), the coded ``redundancy`` plane, the ``hier``
+``SpmdScheduler.sort(keep_on_device=True)`` returns a
+`parallel.device_result.DeviceSortResult` under the same discipline; every
+re-form invalidates the handles the scheduler has returned, and each re-runs
+on the live mesh at its next use.
+
+Not ported yet, each refused with a "not yet ported" error: the coded
+``redundancy`` plane, the ``hier``
 exchange (refused by `SampleSort`) and checkpoints of shards and ranges
 (``checkpoint_dir`` is refused by `JobConfig.from_dict`).  The flight
 recorder (``obs.flight``) is not ported: neither scheduler writes flight
@@ -60,6 +65,7 @@ from __future__ import annotations
 import functools
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -453,6 +459,10 @@ class SpmdScheduler:
         # abandoned program of a dead one.
         self._mesh_lanes: dict = {}
         self._mesh_lanes_lock = threading.Lock()
+        # Outstanding device-resident handles (weakrefs): every re-form
+        # invalidates them, and each re-runs on the live mesh at its next
+        # use through the hook `sort` attaches.
+        self._device_handles: list = []
         #: Callables invoked with the list of newly-dead worker INDEXES on
         #: every mesh re-form.  Listener errors are logged and swallowed:
         #: diagnostics must never break a recovery path.
@@ -482,6 +492,28 @@ class SpmdScheduler:
 
     def _live_devices(self) -> list[int]:
         return [self.devices[i] for i in self.table.live_workers()]
+
+    def _register_handle(self, handle) -> None:
+        self._device_handles.append(weakref.ref(handle))
+
+    def _invalidate_handles(self, reason: str, metrics: Metrics) -> None:
+        """Invalidate every outstanding device-resident handle; called
+        wherever the mesh re-forms.  On one card the buffer outlives a
+        virtual worker, but the contract is the reference's: a handle of a
+        re-formed mesh re-runs at its next use."""
+        live = []
+        for ref in self._device_handles:
+            h = ref()
+            if h is not None and h.valid:
+                h.invalidate(reason)
+                live.append(h)
+        self._device_handles = [r for r in self._device_handles if r() is not None]
+        if live:
+            metrics.event("device_handle_invalidated", reason=reason, n=len(live))
+            log.warning(
+                "%d device-resident handle(s) invalidated (%s); they will re-run on "
+                "the re-formed mesh at next use", len(live), reason,
+            )
 
     def _notify_reform(self, dead: list[int]) -> None:
         """Tell subscribers which worker indexes a re-form just reaped."""
@@ -595,19 +627,19 @@ class SpmdScheduler:
         exchange, `SampleSort.fault_hook`) invalidates the exchange, the
         mesh re-forms over the survivors and the job re-runs there with a
         fresh plan.  ``job_id`` labels the journal's ``job_start``.
-        ``keep_on_device`` and ``redundancy`` above 1 are not ported yet.
+        With ``keep_on_device=True`` the result is a `DeviceSortResult`
+        (integer keys only) under the same fault discipline; a later
+        re-form invalidates it and it re-runs on the live mesh at its next
+        use.  ``redundancy`` above 1 is not ported yet.
         """
-        if keep_on_device:
-            raise NotImplementedError(
-                "keep_on_device (device-resident results) is not yet ported "
-                "to dsort_tpu_torch"
-            )
         if redundancy is not None and redundancy != 1:
             raise NotImplementedError(
                 "redundancy > 1 (the coded ring exchange) is not yet ported "
                 "to dsort_tpu_torch"
             )
         data = np.asarray(data)
+        if keep_on_device and is_float_key_dtype(data.dtype):
+            raise TypeError("keep_on_device supports integer keys only; use sort() for floats")
         if is_float_key_dtype(data.dtype):
             return sort_float_keys_via_uint(
                 self.sort, data, metrics, job_id, exchange=exchange,
@@ -669,8 +701,11 @@ class SpmdScheduler:
                     ss.fault_hook = ring_hook
                 else:
                     ss.fault_hook = None
+                kw = _sort_kwargs(exchange)
+                if keep_on_device:
+                    kw["keep_on_device"] = True
                 with device_scope(self.device):
-                    return ss.sort(data, metrics, **_sort_kwargs(exchange))
+                    return ss.sort(data, metrics, **kw)
 
             try:
                 out = self.run_bounded(
@@ -680,6 +715,13 @@ class SpmdScheduler:
                 )
                 for i in live:  # proof of life: the collective completed
                     self.table.heartbeat(i)
+                if keep_on_device:
+                    # A later re-form invalidates the handle; the hook
+                    # re-sorts on whatever mesh is live then.
+                    out._rerun = lambda: self.sort(
+                        data, metrics=metrics, keep_on_device=True, exchange=exchange,
+                    )
+                    self._register_handle(out)
                 metrics.event(
                     "job_done", n_keys=len(data),
                     counters=dict(metrics.counters),
@@ -698,6 +740,7 @@ class SpmdScheduler:
                     metrics.event("worker_dead", worker=w, stage=e.stage)
                 metrics.bump("mesh_reforms")
                 metrics.event("mesh_reform", survivors=len(live) - len(dead_workers))
+                self._invalidate_handles("mesh_reform", metrics)
                 self._notify_reform(dead_workers)
                 time.sleep(self.job.settle_delay_s)
             except ProgramWaitTimeout as e:
@@ -715,6 +758,7 @@ class SpmdScheduler:
                     )
                     metrics.bump("mesh_reforms")
                     metrics.event("mesh_reform", survivors=len(live) - len(dead))
+                    self._invalidate_handles("mesh_reform", metrics)
                     self._notify_reform(dead)
                 elif transient_retries < self.job.max_transient_retries:
                     transient_retries += 1
@@ -746,6 +790,7 @@ class SpmdScheduler:
                     )
                     metrics.bump("mesh_reforms")
                     metrics.event("mesh_reform", survivors=len(live) - len(dead))
+                    self._invalidate_handles("mesh_reform", metrics)
                     self._notify_reform(dead)
                 elif transient_retries < self.job.max_transient_retries:
                     transient_retries += 1

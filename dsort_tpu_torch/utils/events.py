@@ -51,6 +51,14 @@ EVENT_TYPES: dict[str, str] = {
     "fused_exchange_step": "one planned in-kernel step of the fused ring "
                            "(step, cap, bytes) — the fused twin of "
                            "exchange_step",
+    "device_handle": "a device-resident result handle was made "
+                     "(n_keys, shards)",
+    "device_handle_invalidated": "a mesh re-form invalidated outstanding "
+                                 "device-resident handles (reason, n)",
+    "device_validate": "on-device validation ran over a device-resident "
+                       "result (ok, n)",
+    "device_consume": "a next stage consumed a device-resident result "
+                      "(n_keys, donated)",
 }
 
 

@@ -600,3 +600,107 @@ def test_taskpool_kill_on_cuda(cuda):
     np.testing.assert_array_equal(pool.run_job(x, m), np.sort(x))
     assert m.counters["reassignments"] == 1 and not pool.table.is_alive(3)
     assert tb.launch_counts()["bitonic_tile_kernel"] == 8
+
+
+def _fnv_multiset(a):
+    """The host FNV-1a multiset checksum (`models.validate._multiset`)."""
+    from dsort_tpu_torch.models.validate import _multiset
+
+    return _multiset(a, len(a), a.dtype.itemsize)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["alltoall", "ring", "fused"])
+def test_keep_on_device_round_trip_on_cuda(cuda, exchange):
+    """keep_on_device on the card: the handle's rows stay on the GPU, its
+    checksum equals the input's, to_host equals np.sort, the lengths equal
+    sort_ranges', and the block kernels (and the ring kernel under fused)
+    launched."""
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    x = _keys(np.random.default_rng(45), 1 << 20, np.int32)
+    ss = SampleSort(VirtualMesh(8))
+    tb.reset_launch_counts()
+    rk.reset_launch_counts()
+    h = ss.sort(x, keep_on_device=True, exchange=exchange)
+    assert h._rows().device.type == "cuda"
+    counts = tb.launch_counts()
+    assert all(counts[name] for name in tb.WRAPPERS), counts
+    assert rk.launch_counts()["ring_exchange_kernel"] == (exchange == "fused")
+    rep = h.validate_on_device()
+    assert rep.sorted_ok and rep.records == len(x) and rep.checksum == _fnv_multiset(x)
+    np.testing.assert_array_equal(h.to_host(), np.sort(x))
+    lengths = [len(r) for r in ss.sort_ranges(x, exchange=exchange)]
+    np.testing.assert_array_equal(h.shard_lengths, lengths)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint32, np.uint64,
+                                   np.int8, np.uint8, np.int16, np.uint16])
+def test_keep_on_device_dtypes_on_cuda(cuda, dtype):
+    """Every integer dtype on the card: pads at the dtype's maximum, the
+    device checksum equal to the host one, an in-row and a boundary break
+    caught."""
+    from dsort_tpu_torch.parallel import DeviceSortResult
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    x = _keys(np.random.default_rng(46), 1 << 18, dtype)
+    h = SampleSort(VirtualMesh(8)).sort(x, keep_on_device=True)
+    rows = h._rows()
+    assert rows.device.type == "cuda" and h.dtype == dtype
+    host_rows = rows.cpu().numpy()
+    for i, c in enumerate(h.shard_lengths):
+        assert (host_rows[i, c:] == np.iinfo(dtype).max).all()
+    rep = h.validate_on_device()
+    assert rep.sorted_ok and rep.checksum == _fnv_multiset(x)
+    np.testing.assert_array_equal(h.to_host(), np.sort(x))
+    keys = (np.arange(256) + np.iinfo(dtype).min).astype(dtype)  # 256 distinct, ascending
+    swapped = keys.copy()
+    swapped[[74, 75]] = keys[[75, 74]]
+    for label, k in (("in-row break", swapped), ("boundary break",
+                                                 keys.reshape(4, 64)[::-1].reshape(-1))):
+        rows = torch.from_numpy(np.ascontiguousarray(k)).to(cuda).view(4, 64)
+        rep = DeviceSortResult(rows, [64] * 4, 256).validate_on_device()
+        assert not rep.sorted_ok and rep.checksum == _fnv_multiset(keys), label
+
+
+@pytest.mark.cuda
+def test_fused_handle_read_from_another_thread_on_cuda(cuda):
+    """fused_sort_small returns its handle without a synchronize; another
+    thread reads it correctly."""
+    import threading
+
+    from dsort_tpu_torch.models.pipelines import fused_sort_small
+
+    x = _keys(np.random.default_rng(48), (1 << 20) - 1, np.int32)
+    h = fused_sort_small(x, keep_on_device=True)
+    box = {}
+    reader = threading.Thread(target=lambda: box.update(
+        rep=h.validate_on_device(), host=h.to_host()))
+    reader.start()
+    reader.join(timeout=120)
+    assert not reader.is_alive()
+    assert box["rep"].sorted_ok and box["rep"].checksum == _fnv_multiset(x)
+    np.testing.assert_array_equal(box["host"], np.sort(x))
+
+
+@pytest.mark.cuda
+def test_keep_on_device_rerun_drill_on_cuda(cuda):
+    """A later job's worker loss invalidates a handle made before it; its next use
+    re-runs once on the card and is right."""
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    inj = FaultInjector()
+    sched = _drill(cuda, inj)
+    x = _keys(np.random.default_rng(49), 1 << 20, np.int32)
+    m = Metrics()
+    h = sched.sort(x, m, keep_on_device=True)
+    inj.fail_once(2, "spmd")
+    sched.sort(x[: 1 << 16], m)
+    assert not h.valid and m.counters["mesh_reforms"] == 1
+    np.testing.assert_array_equal(h.to_host(), np.sort(x))
+    assert h.valid and m.counters["device_handle_reruns"] == 1
+    assert h.validate_on_device().checksum == _fnv_multiset(x)

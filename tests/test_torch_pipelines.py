@@ -191,8 +191,13 @@ def test_fused_sort_small_narrow_dtypes_match_jax(dtype):
 
 
 def test_fused_sort_small_refuses_device_results_and_needs_a_device(monkeypatch):
-    with pytest.raises(NotImplementedError, match="keep_on_device"):
-        tpl.fused_sort_small(np.arange(4, dtype=np.int32), keep_on_device=True, device="cpu")
+    """Device-resident results take integer keys only (float keys raise, as
+    in the reference); the route needs a device unless the CPU is asked."""
+    with pytest.raises(TypeError, match="integer keys"):
+        tpl.fused_sort_small(np.arange(4, dtype=np.float32), keep_on_device=True, device="cpu")
+    h = tpl.fused_sort_small(np.arange(4, dtype=np.int32)[::-1].copy(), keep_on_device=True,
+                             device="cpu")
+    assert h.to_host().tolist() == [0, 1, 2, 3]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpl.fused_sort_small(np.arange(4, dtype=np.int32))
