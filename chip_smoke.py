@@ -103,7 +103,25 @@ Phases (any failure raises, so the exit code is non-zero):
    (a later job loses worker 2, the handle re-runs once at ``to_host()``);
    ``cli run --device-resident`` on phase 4's file against its ``cli run``,
    ``cli validate --against`` (0, then 1 with two lines swapped), ``cli
-   gen`` of 2^20 lines.
+   gen`` of 2^20 lines;
+9. the rest of the exchange plane (`exchange_plane`): ``hier`` at 2^26
+   int32 with 2 and 4 hosts and at 2^24 zipf int64 with 2 (numpy's bits,
+   ring's per-shard counts, the wire-byte counters equal to the plan's,
+   the block kernels launched), in turns against ``ring``, and the
+   ``hier_reform`` drill (one worker, then one host lost); the coded plane
+   at 2^26 int32 (replicate r = 2, parity r = 2 and 3: bits, launches,
+   ``coded_replica_bytes`` against the wire model, peak memory, in turns
+   against ``ring``) and on the 2^23 records (replicate and parity r = 2);
+   ``SpmdScheduler(8)`` drills at 2^26 int32 r = 2: a mid-ring loss
+   recovered with one ``attempt_start`` and one local-sort launch (the
+   host copy and the host merge timed apart), its time to recover beside
+   the uncoded re-run's, two adjacent losses over budget then re-run, and
+   the straggler race (``slow(5, 0.5)``: one ``coded_straggler_serve``,
+   under healthy + 0.5 s, the owner leg drained); ``local_kernel="radix"``
+   at 2^26 int32 and ``radix_sort`` / ``radix_sort_kv`` against
+   ``torch.sort``; ``cli run --redundancy 2`` on phase 4's file (not the
+   fused route), ``--exchange hier`` on it (the fused route) and on 2^21
+   lines (the scheduler, hier's plan journaled).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -1231,6 +1249,308 @@ def device_resident(card, ss, x32, ref32, z, refz, reset, launched, keys_path, s
         f"wrote {n_lines} lines [{card}]")
 
 
+def exchange_plane(card, ss, x32, ref32, counts32, z, refz, tk, tv, ref_k, ref_v, hist32,
+                   reset, counts, launched, keys_path, kv_merge, src, want_bytes, work) -> None:
+    """Phase 9: the rest of the exchange plane on the card — ``hier``, the
+    coded plane (keys, records, recovery drills, the straggler race),
+    ``local_kernel="radix"`` and the CLI flags.  ``ss`` is phase 4's
+    `SampleSort(VirtualMesh(8))`; ``x32`` / ``z`` / ``tk, tv`` its 2^26
+    int32, 2^24 zipf int64 and 2^23 TeraSort inputs with their numpy
+    results; ``hist32`` the measured (P, P) histogram of ``x32``'s plan."""
+    from dsort_tpu_torch import cli
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.ops.radix import radix_sort, radix_sort_kv
+    from dsort_tpu_torch.parallel import exchange as ex
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+    from dsort_tpu_torch.scheduler import FaultInjector, SpmdScheduler
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    mesh, dev = ss.mesh, ss.mesh.device
+    n32, n_local = len(x32), -(-len(x32) // P)
+
+    def peak_gb(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() / 2**30
+
+    def one(label, sorter, data, reference, need, **kw):
+        """One driven sort with its launches, bits, wall and peak memory."""
+        m = Metrics(journal=EventLog())
+        reset()
+        t0 = time.perf_counter()
+        out, gb = peak_gb(lambda: sorter.sort(data, m, **kw))
+        wall = (time.perf_counter() - t0) * 1e3
+        got = launched(label, need)
+        if not same_bits(out, reference):
+            raise AssertionError(f"{label}: output differs from numpy")
+        log(f"exchange {label}: equal to numpy, {wall:.1f} ms wall, peak "
+            f"{gb:.3f} GiB allocated, launches {got} [{card}]")
+        return m, got
+
+    def in_turns(label, runs: dict, data, reps=2, unit_n=None):
+        """Host-to-host medians of each named run, in turns A B .. B A."""
+        names = list(runs)
+        order = names + names[::-1]
+        parts = []
+        for name in order:
+            parts += [(name, t) for t in host_times(lambda: runs[name](data), reps)]
+        med = {}
+        for name in names:
+            ts = [t for k, t in parts if k == name]
+            med[name] = float(np.median(ts))
+            log(f"time {label} {name} host-to-host: {med[name]:.3f} ms median of {len(ts)} "
+                f"(runs {[round(t, 3) for t in ts]}) [{card}]")
+        return med
+
+    # -- hier -------------------------------------------------------------------
+    hier = {h: SampleSort(mesh, JobConfig(exchange="hier", hier_hosts=h)) for h in (2, 4)}
+    ring_counts = counts32
+    caps32 = ex.ring_caps(hist32, n_local, P)
+    for h, sorter in hier.items():
+        m, _ = one(f"hier hosts={h} uniform int32 n=2^26", sorter, x32, ref32, keys_path)
+        plan = ex.hier_plan(hist32, n_local, P, h)
+        dcn, intra = ex.hier_wire_bytes(plan, 4)
+        saved = max(ex.ring_dcn_bytes(caps32, 4, P, h) - dcn, 0)
+        got = (m.counters["dcn_bytes_on_wire"], m.counters["intra_host_bytes_on_wire"],
+               m.counters["dcn_bytes_saved"])
+        if got != (dcn, intra, saved) or m.counters["hier_exchanges"] != 1:
+            raise AssertionError(f"hier hosts={h}: counters {got} != plan's {(dcn, intra, saved)}")
+        shard_counts = [len(r) for r in sorter.sort_ranges(x32)]
+        if shard_counts != ring_counts:
+            raise AssertionError(f"hier hosts={h}: per-shard counts differ from ring's")
+        log(f"  plan {tuple(plan)}: dcn_bytes_on_wire {dcn}, intra_host_bytes_on_wire {intra}, "
+            f"dcn_bytes_saved {saved} (the plan's counts: on one card no byte crosses a host); "
+            f"per-shard counts equal ring's")
+    one("hier hosts=2 zipf(1.3) int64 n=2^24", hier[2], z, refz, keys_path)
+    in_turns("SampleSort int32 n=2^26", {
+        "ring": lambda d: ss.sort(d, exchange="ring"),
+        "hier hosts=2": lambda d: hier[2].sort(d), "hier hosts=4": lambda d: hier[4].sort(d),
+    }, x32)
+    for victims, what in (([5], "one worker"), ([2, 3], "host 1 of 4")):
+        inj = FaultInjector()
+        sched = SpmdScheduler(8, dev, JobConfig(settle_delay_s=0.01, exchange="hier",
+                                                hier_hosts=4), inj)
+        for w in victims:
+            inj.fail_once(w, "ring")
+        m = Metrics(journal=EventLog())
+        if not same_bits(sched.sort(x32, m), ref32):
+            raise AssertionError(f"hier_reform drill ({what}): output differs from numpy")
+        rf = [f for e in m.journal.events() if e.type == "hier_reform" for f in [e.fields]]
+        want = ex.resolve_hier_hosts(4, 8 - len(victims))
+        if len(rf) != 1 or (rf[0]["hosts_before"], rf[0]["hosts_after"]) != (4, want):
+            raise AssertionError(f"hier_reform drill ({what}): {rf}")
+        log(f"fault hier_reform, lose {what} (workers {victims}) at 2^26 int32, hosts=4: "
+            f"hosts_before {rf[0]['hosts_before']}, hosts_after {rf[0]['hosts_after']}, "
+            f"downgraded {rf[0]['downgraded']}, survivors {rf[0]['survivors']}, equal to numpy")
+
+    # -- coded keys --------------------------------------------------------------
+    coded = {
+        f"{mode} r={r}": SampleSort(mesh, JobConfig(exchange="ring", redundancy=r,
+                                                    redundancy_mode=mode))
+        for mode, r in (("replicate", 2), ("parity", 2), ("parity", 3))
+    }
+    _, ring_gb = peak_gb(lambda: ss.sort(x32, exchange="ring"))
+    log(f"exchange ring uniform int32 n=2^26: peak {ring_gb:.3f} GiB allocated [{card}]")
+    for name, sorter in coded.items():
+        m, _ = one(f"coded {name} uniform int32 n=2^26", sorter, x32, ref32, keys_path)
+        r, mode = sorter.job.redundancy, sorter.job.redundancy_mode
+        model = (ex.parity_wire_bytes if mode == "parity" else ex.replica_wire_bytes)(
+            caps32, 4, P, r)
+        if m.counters["coded_replica_bytes"] != model:
+            raise AssertionError(f"coded {name}: coded_replica_bytes "
+                                 f"{m.counters['coded_replica_bytes']} != model {model}")
+        log(f"  coded_replica_bytes {model} = {mode}_wire_bytes(caps); ring's own "
+            f"{ex.ring_wire_bytes(caps32, 4, P)}")
+    in_turns("SampleSort int32 n=2^26", {
+        "ring": lambda d: ss.sort(d, exchange="ring"),
+        **{f"coded {k}": (lambda d, s=s: s.sort(d)) for k, s in coded.items()},
+    }, x32)
+
+    # -- coded records -----------------------------------------------------------
+    for mode in ("replicate", "parity"):
+        sorter = SampleSort(mesh, JobConfig(exchange="ring", redundancy=2, redundancy_mode=mode))
+        m = Metrics()
+        reset()
+        t0 = time.perf_counter()
+        (ok, ov), gb = peak_gb(lambda: sorter.sort_kv(tk, tv, m))
+        wall = (time.perf_counter() - t0) * 1e3
+        got = launched(f"coded sort_kv {mode}", kv_merge)
+        # The 8-byte prefixes are unique (phase 4), so the multiset per key
+        # is the stable order itself.
+        if not (np.array_equal(ok, ref_k) and np.array_equal(ov, ref_v)):
+            raise AssertionError(f"coded sort_kv {mode}: records differ from numpy's")
+        log(f"exchange coded sort_kv {mode} r=2 2^23 TeraSort records: records equal numpy's, "
+            f"{wall:.1f} ms wall, peak {gb:.3f} GiB allocated, coded_replica_bytes "
+            f"{m.counters['coded_replica_bytes']}, launches {got} [{card}]")
+
+    # -- recovery drills ---------------------------------------------------------
+    def drill_sched(**job):
+        inj = FaultInjector()
+        sched = SpmdScheduler(8, dev, JobConfig(settle_delay_s=0.1, exchange="ring", **job), inj)
+        if not same_bits(sched.sort(x32), ref32):
+            raise AssertionError("drill warm-up differs from numpy")
+        return sched, inj
+
+    def faulted_sort(label, sched, inj, arm, check):
+        arm(inj)
+        m = Metrics(journal=EventLog())
+        reset()
+        out = sched.sort(x32, m)
+        if not same_bits(out, ref32):
+            raise AssertionError(f"{label}: output differs from numpy")
+        check(m)
+        return m
+
+    recover = {}
+    for name, job in (("replicate r=2", dict(redundancy=2)),
+                      ("parity r=2", dict(redundancy=2, redundancy_mode="parity")),
+                      ("uncoded", {})):
+        sched, inj = drill_sched(**job)
+        coded_run = bool(job)
+        rec_type = "parity_recover" if job.get("redundancy_mode") == "parity" else "coded_recover"
+        events = []
+
+        def check(m, coded_run=coded_run, rec_type=rec_type, name=name):
+            types = m.journal.types()
+            k1 = counts()["bitonic_tile_kernel"]
+            if coded_run:
+                rec = [e.fields for e in m.journal.events() if e.type == rec_type]
+                if types.count("attempt_start") != 1 or len(rec) != 1 or k1 != 1:
+                    raise AssertionError(f"coded drill {name}: {types}, K1 launches {k1}")
+                events.append(rec[0])
+            elif types.count("attempt_start") != 2 or k1 != 2:
+                raise AssertionError(f"uncoded drill: {types}, K1 launches {k1}")
+
+        def healthy(d, sched=sched):
+            return sched.sort(d)
+
+        def faulted(d, sched=sched, inj=inj, check=check, name=name):
+            return faulted_sort(f"mid-ring loss {name}", sched, inj,
+                                lambda i: i.fail_once(3, "ring"), check)
+
+        med = in_turns(f"SpmdScheduler(8) int32 n=2^26 {name}",
+                       {"healthy": healthy, "mid-ring loss of worker 3": faulted}, x32)
+        recover[name] = med["mid-ring loss of worker 3"] - med["healthy"]
+        if events:
+            ev = events[0]
+            fetch = [round(e["fetch_s"] * 1e3, 3) for e in events]
+            merge = [round(e["wall_s"] * 1e3, 3) for e in events]
+            log(f"  {rec_type} x{len(events)}: dead {ev['dead']}, holders {ev['holders']}, "
+                f"recovered_keys {ev['recovered_keys']}, replica_bytes {ev['replica_bytes']}, "
+                f"host copy (fetch_s) median {np.median(fetch):.3f} ms {fetch}, host merge "
+                f"(wall_s) median {np.median(merge):.3f} ms {merge}; one attempt_start, K1 "
+                f"launched once (zero keys re-sorted) each [{card}]")
+        if coded_run:
+            def over_budget(m):
+                types = m.journal.types()
+                if "coded_budget_exceeded" not in types or types.count("attempt_start") != 2:
+                    raise AssertionError(f"two adjacent losses: {types}")
+
+            faulted_sort(f"two adjacent losses {name}", sched, inj,
+                         lambda i: i.fail_sequence([(3, "ring"), (4, "ring")]), over_budget)
+            log(f"fault coded {name} two adjacent losses (3, 4): coded_budget_exceeded, then "
+                f"the re-run, equal to numpy")
+        if name == "replicate r=2":
+            # The straggler race: worker 5 slow by 0.5 s, no failure.
+            inj.slow(5, 0.5)
+            m = Metrics(journal=EventLog())
+            t0 = time.perf_counter()
+            out = sched.sort(x32, m)
+            wall = (time.perf_counter() - t0) * 1e3
+            inj.slow(5, 0)
+            serves = [e.fields for e in m.journal.events() if e.type == "coded_straggler_serve"]
+            if not same_bits(out, ref32) or len(serves) != 1:
+                raise AssertionError(f"straggler drill: {m.journal.types()}")
+            if wall >= med["healthy"] + 500:
+                raise AssertionError(f"straggler drill: {wall:.1f} ms >= healthy + 500 ms")
+            for s in sched._sorters.values():
+                s.join_stragglers()
+            owner = [e.fields for e in m.journal.events() if e.type == "coded_owner_fetch"]
+            if len(owner) != 1 or owner[0]["won"]:
+                raise AssertionError(f"straggler drill: owner leg {owner}")
+            log(f"fault straggler slow(5, 0.5 s) replicate r=2 2^26 int32: one "
+                f"coded_straggler_serve (range {serves[0]['range']}, holder leg "
+                f"{serves[0]['wall_s'] * 1e3:.3f} ms), wall {wall:.1f} ms against healthy "
+                f"{med['healthy']:.1f} + 500 ms; the owner leg drained after "
+                f"{owner[0]['wall_s'] * 1e3:.1f} ms, won=False [{card}]")
+    log(f"time to recover, mid-ring loss at 2^26 int32 (faulted minus healthy medians): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in recover.items()) + f" [{card}]")
+
+    # -- radix ------------------------------------------------------------------
+    rs = SampleSort(mesh, JobConfig(local_kernel="radix"))
+    one("local_kernel=radix uniform int32 n=2^26", rs, x32, ref32, set())
+    rrng = np.random.default_rng(13)
+    for dtype, shape in ((np.int32, (P, n32 // P)), (np.int64, (P, len(z) // P))):
+        xr = torch.from_numpy(random_keys(rrng, shape, dtype)).to(dev)
+        if not torch.equal(radix_sort(xr), torch.sort(xr).values):
+            raise AssertionError(f"radix_sort {np.dtype(dtype).name} {shape} != torch.sort")
+        r_ms = cuda_ms(lambda: radix_sort(xr), reps=3, warmup=1)
+        t_ms = cuda_ms(lambda: torch.sort(xr))
+        b_ms, b_by = bound_ms(2 * xr.numel() * xr.element_size())
+        log(f"time radix_sort {np.dtype(dtype).name} {shape}: {r_ms:.3f} ms, torch.sort "
+            f"{t_ms:.3f} ms ({r_ms / t_ms:.1f}x), bound {b_ms:.4f} ms ({b_by}) (plain PyTorch, "
+            f"no kernel) [{card}]")
+        del xr
+    nk = 1 << 20
+    kk = torch.from_numpy(rrng.integers(0, 1 << 12, nk).astype(np.int32)).to(dev)
+    vv = torch.from_numpy(rrng.integers(0, 256, (nk, 90), dtype=np.uint8)).to(dev)
+    ok, ov = radix_sort_kv(kk, vv)
+    perm = torch.sort(kk, stable=True).indices
+    if not (torch.equal(ok, kk[perm]) and torch.equal(ov, vv[perm])):
+        raise AssertionError("radix_sort_kv: not the stable order")
+    kv_ms = cuda_ms(lambda: radix_sort_kv(kk, vv), reps=3, warmup=1)
+    log(f"time radix_sort_kv 2^20 int32 keys (4096 distinct) + 90-byte payloads: {kv_ms:.3f} ms, "
+        f"stable: payloads in the stable torch.sort order [{card}]")
+    del kk, vv, ok, ov, perm
+
+    # -- the CLI flags -------------------------------------------------------------
+    dst, jpath = work / "output_p9.txt", work / "journal_p9.jsonl"
+    reset()
+    t0 = time.perf_counter()
+    if cli.main(["run", str(src), "-o", str(dst), "--redundancy", "2", "--journal",
+                 str(jpath)]) != 0:
+        raise AssertionError("cli run --redundancy 2 failed")
+    wall = (time.perf_counter() - t0) * 1e3
+    got = launched("cli run --redundancy 2", keys_path)
+    recs = EventLog.read_jsonl(str(jpath))
+    types = [r["type"] for r in recs]
+    if (dst.read_bytes() != want_bytes or recs[0]["mode"] != "spmd"
+            or "coded_replica_ship" not in types or "fused_small_jobs" in recs[-2]["counters"]):
+        raise AssertionError(f"cli run --redundancy 2: {recs[0]} {types}")
+    log(f"main cli run --redundancy 2 10^6 lines: byte-identical, {wall:.1f} ms wall, "
+        f"SpmdScheduler (not the fused route), coded_replica_ship journaled, launches {got}")
+    # Under 2^20 keys a hier job takes the fused route, as dsort run routes
+    # it (only a coded job skips it); 2^21 lines reach the scheduler.
+    if cli.main(["run", str(src), "-o", str(dst), "--exchange", "hier", "--journal",
+                 str(jpath)]) != 0:
+        raise AssertionError("cli run --exchange hier (10^6 lines) failed")
+    recs = EventLog.read_jsonl(str(jpath))
+    if dst.read_bytes() != want_bytes or recs[0]["mode"] != "fused":
+        raise AssertionError(f"cli run --exchange hier 10^6 lines: {recs[0]}")
+    log("main cli run --exchange hier 10^6 lines: byte-identical, the fused route (under "
+        "2^20 keys, as dsort run routes it)")
+    big, big_out = work / "input_2p21.txt", work / "output_2p21.txt"
+    xb = x32[: 1 << 21]
+    big.write_text("".join(f"{v}\n" for v in xb.tolist()))
+    reset()
+    t0 = time.perf_counter()
+    if cli.main(["run", str(big), "-o", str(big_out), "--exchange", "hier", "--hier-hosts", "4",
+                 "--journal", str(jpath)]) != 0:
+        raise AssertionError("cli run --exchange hier failed")
+    wall = (time.perf_counter() - t0) * 1e3
+    got = launched("cli run --exchange hier", keys_path)
+    recs = EventLog.read_jsonl(str(jpath))
+    plans = [r for r in recs if r["type"] == "hier_exchange_plan"]
+    if (big_out.read_bytes() != "".join(f"{v}\n" for v in np.sort(xb).tolist()).encode()
+            or len(plans) != 1 or plans[0]["hosts"] != 4):
+        raise AssertionError(f"cli run --exchange hier: {plans}")
+    log(f"main cli run --exchange hier --hier-hosts 4 2^21 lines: byte-identical, {wall:.1f} ms "
+        f"wall, hier_exchange_plan hosts 4, launches {got}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1439,7 +1759,8 @@ def main() -> int:
         to_signed_keys(torch.from_numpy(shards).to(dev)), torch.from_numpy(cnt).to(dev),
         mesh=mesh, oversample=32, kernel="auto",
     )
-    caps32 = ex.ring_caps(hist.cpu().numpy(), shards.shape[1], P)
+    hist32 = hist.cpu().numpy()
+    caps32 = ex.ring_caps(hist32, shards.shape[1], P)
     starts32, lens32 = ex._bucket_bounds(xs_plan, torch.from_numpy(cnt).to(dev), split)
     hold("ring_exchange_kernel", f"keys, plan of 2^26 int32 (caps {caps32})",
          lambda: rk.ring_exchange(xs_plan, starts32, lens32, caps32)[:1],
@@ -2103,6 +2424,10 @@ def main() -> int:
     # 8. device-resident results and validation ------------------------------
     device_resident(card, ss, x32, ref32, z, refz, reset, launched, keys_path, src, want_bytes,
                     work, cli_wall_ms)
+
+    # 9. hier, the coded plane, radix -----------------------------------------
+    exchange_plane(card, ss, x32, ref32, counts32, z, refz, tk, tv, ref_k, ref_v, hist32,
+                   reset, counts, launched, keys_path, kv_merge, src, want_bytes, work)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -10,8 +10,9 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   ``--mode`` routes the job as ``dsort run --mode`` does (`_make_sorter`):
 
   * ``spmd`` (default): a job under `models.pipelines.FUSED_SMALL_JOB_MAX`
-    keys runs as one fused device program (`fused_sort_small`) under the
-    scheduler's bounded wait (``run_bounded(tag="fused")``); a device
+    keys, unless coded (``--redundancy`` above 1: a coded job always
+    reaches the exchange), runs as one fused device program
+    (`fused_sort_small`) under the scheduler's bounded wait (``run_bounded(tag="fused")``); a device
     error or a lapsed wait falls back to `SpmdScheduler.sort`, and three
     latches close the fused route after a wedge (below).  Larger jobs go
     through `SpmdScheduler` (failure detection, bounded waits, probes,
@@ -26,15 +27,18 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   ``keep_on_device=True``, validates the handle on the device (order, and
   its checksum against the input's host `_multiset`), then copies it to
   the host for the output file; exit 1 when either check fails;
-- ``terasort INPUT -o OUTPUT [--exchange E]``: 100-byte TeraSort records
+- ``terasort INPUT -o OUTPUT``: 100-byte TeraSort records
   through `SampleSort.sort_kv` (the reference's ``cmd_terasort`` does not
   use the scheduler either), ordered by the full 10-byte key (8-byte
   prefix, then key bytes 8-9 as the secondary key — which keeps the
-  ``alltoall`` exchange); its keys are always the uint64 prefix, so it
-  takes no ``--dtype``, as in the reference.
+  ``alltoall`` exchange and runs uncoded, both warned); its keys are
+  always the uint64 prefix, so it takes no ``--dtype``, as in the
+  reference.
 
-Both take ``--kernel`` (`JobConfig.local_kernel`) and ``--merge-kernel``
-(`JobConfig.merge_kernel`), as the JAX package's common flags do.  Two
+Both take ``--kernel`` (`JobConfig.local_kernel`, ``radix`` included),
+``--merge-kernel``, ``--exchange`` (``hier`` included), ``--hier-hosts``,
+``--redundancy`` and ``--redundancy-mode`` (`JobConfig`'s fields of those
+names), as the JAX package's common flags do.  Two
 host tools run no sort and touch no device, as ``dsort``'s do:
 
 - ``validate INPUT [--against FILE] [--terasort|--binary] [--dtype D]``:
@@ -53,7 +57,13 @@ import sys
 import threading
 import time
 
-from dsort_tpu_torch.config import _LOCAL_PORTED, _MERGE_PORTED, JobConfig
+from dsort_tpu_torch.config import (
+    _EXCHANGES,
+    _LOCAL_KERNELS,
+    _MERGE_KERNELS,
+    _REDUNDANCY_MODES,
+    JobConfig,
+)
 from dsort_tpu_torch.utils.logging import get_logger
 
 log = get_logger("cli")
@@ -76,17 +86,29 @@ FUSED_COLD_RETRY_S = 1800.0
 FUSED_COLD_LAPSE_BACKSTOP = 8
 
 MODES = ("spmd", "taskpool", "local")
-EXCHANGES = ("alltoall", "ring", "fused")
 
 
 def _common(p: argparse.ArgumentParser, default_output: str) -> None:
     p.add_argument("input")
     p.add_argument("-o", "--output", default=default_output)
     p.add_argument("--workers", type=int, default=8, help="virtual mesh shards")
-    p.add_argument("--exchange", choices=EXCHANGES, default=None,
-                   help="bucket exchange schedule (default: JobConfig's)")
-    p.add_argument("--kernel", choices=_LOCAL_PORTED, default="auto", help="local sort kernel")
-    p.add_argument("--merge-kernel", choices=_MERGE_PORTED, default="auto",
+    p.add_argument("--exchange", choices=_EXCHANGES, default=None,
+                   help="bucket exchange schedule (default: JobConfig's); hier = the "
+                        "two-level schedule: intra-host aggregation, one transfer per "
+                        "host pair, a local scatter")
+    p.add_argument("--hier-hosts", type=int, default=None,
+                   help="host count the hier schedule groups the workers into (default "
+                        "0 = auto: the torch.distributed world size, else 2 simulated)")
+    p.add_argument("--redundancy", type=int, default=None,
+                   help="coded redundancy r (default 1 = off): the ring exchange also "
+                        "ships every bucket's redundancy to its destination's ring "
+                        "successors, so losses within the budget recover by a local "
+                        "merge, zero keys re-sorted (forces the ring schedule)")
+    p.add_argument("--redundancy-mode", choices=_REDUNDANCY_MODES, default=None,
+                   help="how r > 1 ships its premium: replicate (r-1 full bucket "
+                        "copies) or parity (XOR at r=2, GF(256) P+Q at r>=3)")
+    p.add_argument("--kernel", choices=_LOCAL_KERNELS, default="auto", help="local sort kernel")
+    p.add_argument("--merge-kernel", choices=_MERGE_KERNELS, default="auto",
                    help="post-exchange combine (default auto: block_merge wherever "
                         "the block kernel applies)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -159,7 +181,14 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
             return not ts or time.monotonic() - ts > FUSED_COLD_RETRY_S
 
         def sorter(data, metrics, job_id=None):
-            if len(data) < FUSED_SMALL_JOB_MAX and fused_path_open():
+            # A coded job (redundancy > 1) must reach the exchange plane:
+            # the fused route has no replica plane, and dropping an asked-for
+            # availability posture would be worse than the extra dispatches.
+            if (
+                len(data) < FUSED_SMALL_JOB_MAX
+                and job.redundancy <= 1
+                and fused_path_open()
+            ):
                 try:
                     metrics.event(
                         "job_start", mode="fused", n_keys=len(data), job_id=job_id,
@@ -378,8 +407,10 @@ def main(argv=None) -> int:
         return _gen(args)
     if args.cmd == "validate":
         return _validate(args)
+    knobs = {"exchange": args.exchange, "hier_hosts": args.hier_hosts,
+             "redundancy": args.redundancy, "redundancy_mode": args.redundancy_mode}
     job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel,
-                    **({"exchange": args.exchange} if args.exchange else {}))
+                    **{k: v for k, v in knobs.items() if v})
     if args.cmd == "run":
         return _run(args, job)
     from dsort_tpu_torch.data import ingest

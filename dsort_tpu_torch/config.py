@@ -2,9 +2,9 @@
 scheduler read.
 
 Counterpart of ``dsort_tpu/config.py``'s ``JobConfig``, cut to what the
-ported path reads.  Values the JAX package accepts but this package has not
-ported yet raise a clear "not yet ported" `ConfigError` instead of running
-something else.
+ported path reads.  `JobConfig.from_dict` refuses the reference's settings
+this package has not ported yet with a clear "not yet ported"
+`ConfigError` instead of running something else.
 """
 
 from __future__ import annotations
@@ -12,27 +12,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-# Every value the JAX package accepts, and the subset ported here.
+# Every value the JAX package accepts; all of them are ported.
 _LOCAL_KERNELS = ("auto", "lax", "block", "bitonic", "pallas", "radix")
-_LOCAL_PORTED = ("auto", "lax", "block", "bitonic", "pallas")
 _MERGE_KERNELS = ("auto", "sort", "bitonic", "block_merge")
-_MERGE_PORTED = ("auto", "sort", "bitonic", "block_merge")
 _EXCHANGES = ("alltoall", "ring", "fused", "hier")
-_EXCHANGE_PORTED = ("alltoall", "ring", "fused")
+_REDUNDANCY_MODES = ("replicate", "parity")
 
 
 class ConfigError(ValueError):
     """Raised for invalid or inconsistent configuration."""
 
 
-def _check_choice(name: str, value, known: tuple, ported: tuple) -> None:
+def _check_choice(name: str, value, known: tuple) -> None:
     if value not in known:
         raise ConfigError(f"{name} must be one of {known}, got {value!r}")
-    if value not in ported:
-        raise ConfigError(
-            f"{name}={value!r} is not yet ported to dsort_tpu_torch "
-            f"(ported: {ported})"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +37,8 @@ class JobConfig:
       PyTorch bitonic network (`ops.bitonic`), ``pallas`` the tile-sort CUDA
       kernel plus the bitonic merge tree (`ops.pallas_sort`); ``auto`` picks
       ``block`` for integer keys of at least 2^16 on a CUDA tensor
-      (`ops.local_sort`), never ``bitonic`` or ``pallas``; ``radix`` is not
-      ported yet;
+      (`ops.local_sort`), never ``bitonic``, ``pallas`` or ``radix``;
+      ``radix`` is the LSD counting sort (`ops.radix`, plain PyTorch);
     - ``merge_kernel``: post-exchange combine; ``block_merge`` enters the
       bitonic network at the run level, ``bitonic`` merges the received runs
       with the bitonic merge tree, ``sort`` re-sorts flat through the local
@@ -56,9 +49,22 @@ class JobConfig:
     - ``max_capacity_retries``: measured-capacity retries after an overflow;
     - ``exchange``: the bucket exchange: ``alltoall`` (one padded
       transpose with the measured-capacity retry), ``ring`` (P-1 shifts
-      sized from the measured histogram, merged as they land) or
+      sized from the measured histogram, merged as they land),
       ``fused`` (the same schedule as one exchange kernel plus one merge,
-      `ops.ring_kernel`); ``hier`` is not ported yet;
+      `ops.ring_kernel`) or ``hier`` (the two-level schedule: intra-host
+      aggregation, one transfer per (src-host, dst-host) pair, a local
+      scatter; `parallel.exchange`);
+    - ``hier_hosts``: the host count ``hier`` groups the workers into; 0 is
+      auto (the world size of an initialised ``torch.distributed`` group,
+      else 2 simulated hosts); a value that does not divide the workers
+      resolves to the nearest divisor below it
+      (`parallel.exchange.resolve_hier_hosts`);
+    - ``redundancy``: the coded exchange (`parallel.coded`): 1 is off; r > 1
+      forces the ``ring`` schedule and ships every bucket's redundancy to
+      its destination's ring successors, so losses within the budget
+      recover by a local merge of a survivor's slots instead of a re-run;
+    - ``redundancy_mode``: ``replicate`` (r - 1 full bucket copies) or
+      ``parity`` (XOR at r = 2, GF(256) P+Q at r >= 3);
     - the fault plane (`scheduler.SpmdScheduler`, the fused route's
       bounded wait in ``cli run``), with the reference's
       defaults: ``settle_delay_s`` between a failure and the re-run;
@@ -77,6 +83,9 @@ class JobConfig:
     local_kernel: str = "auto"
     merge_kernel: str = "auto"
     exchange: str = "alltoall"
+    hier_hosts: int = 0
+    redundancy: int = 1
+    redundancy_mode: str = "replicate"
     oversample: int = 32
     capacity_factor: float = 1.3
     max_capacity_retries: int = 3
@@ -88,9 +97,18 @@ class JobConfig:
     exec_allowance_keys_per_s: float = 1e6
 
     def __post_init__(self) -> None:
-        _check_choice("local_kernel", self.local_kernel, _LOCAL_KERNELS, _LOCAL_PORTED)
-        _check_choice("merge_kernel", self.merge_kernel, _MERGE_KERNELS, _MERGE_PORTED)
-        _check_choice("exchange", self.exchange, _EXCHANGES, _EXCHANGE_PORTED)
+        _check_choice("local_kernel", self.local_kernel, _LOCAL_KERNELS)
+        _check_choice("merge_kernel", self.merge_kernel, _MERGE_KERNELS)
+        _check_choice("exchange", self.exchange, _EXCHANGES)
+        if not isinstance(self.hier_hosts, int) or self.hier_hosts < 0:
+            raise ConfigError(
+                f"hier_hosts must be an integer >= 0, got {self.hier_hosts!r}"
+            )
+        if not isinstance(self.redundancy, int) or self.redundancy < 1:
+            raise ConfigError(
+                f"redundancy must be an integer >= 1, got {self.redundancy!r}"
+            )
+        _check_choice("redundancy_mode", self.redundancy_mode, _REDUNDANCY_MODES)
         if self.oversample < 1:
             raise ConfigError(f"oversample must be >= 1, got {self.oversample}")
         if self.capacity_factor < 1.0:
@@ -122,8 +140,9 @@ class JobConfig:
         ``dsort_tpu`` ``JobConfig`` — how both packages run one sort with
         identical settings.
 
-        Read: ``local_kernel``, ``merge_kernel``, ``exchange`` (``alltoall``,
-        ``ring`` or ``fused``), ``oversample``, ``capacity_factor``,
+        Read: ``local_kernel``, ``merge_kernel``, ``exchange``,
+        ``hier_hosts``, ``redundancy``, ``redundancy_mode``,
+        ``oversample``, ``capacity_factor``,
         ``max_capacity_retries``, ``settle_delay_s``,
         ``heartbeat_timeout_s``, ``compile_grace_s``,
         ``max_transient_retries``, ``exec_allowance_floor_s``,
@@ -131,20 +150,14 @@ class JobConfig:
 
         Ignored (not read by the ported path yet): ``key_dtype`` (the input
         array's dtype decides), ``payload_bytes`` (the payload array's row
-        decides), ``hier_hosts``, ``redundancy_mode``,
-        ``max_reassign_attempts`` (the task-pool scheduler's), ``tenant``,
+        decides), ``max_reassign_attempts`` (the task-pool scheduler's), ``tenant``,
         ``flight_recorder_dir``, ``flight_ring_size``, ``explicit``.
 
-        Refused (they would change the reference's schedule or guarantees):
-        ``redundancy`` above 1 (the coded ring exchange), ``autotune`` (the
-        planner) and a ``checkpoint_dir`` (resumable jobs: a user who asked
-        for them must not get a silent non-resumable run).
+        Refused, as not yet ported (they would change the reference's
+        schedule or guarantees): ``autotune`` (the planner) and a
+        ``checkpoint_dir`` (resumable jobs: a user who asked for them must
+        not get a silent non-resumable run).
         """
-        if int(d.get("redundancy", 1)) != 1:
-            raise ConfigError(
-                "redundancy > 1 (the coded ring exchange) is not yet ported "
-                "to dsort_tpu_torch"
-            )
         if d.get("checkpoint_dir") is not None:
             raise ConfigError(
                 "checkpoint_dir (resumable jobs) is not yet ported to "

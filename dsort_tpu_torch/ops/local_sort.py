@@ -4,8 +4,9 @@ Counterpart of ``dsort_tpu/ops/local_sort.py``.  ``lax.sort`` is XLA's own
 sort, not a Pallas kernel, so its fair counterpart here is ``torch.sort``
 (the ``lax`` kernel name is kept so configs carry across unchanged).  The
 other kernels: ``block`` (`ops.block_sort`), ``bitonic`` (`ops.bitonic`,
-plain PyTorch as the reference's is jnp) and ``pallas`` (`ops.pallas_sort`,
-the tile kernel plus the bitonic merge tree); ``radix`` is not ported yet.
+plain PyTorch as the reference's is jnp), ``pallas`` (`ops.pallas_sort`,
+the tile kernel plus the bitonic merge tree) and ``radix`` (`ops.radix`,
+plain PyTorch as the reference's is jnp).
 
 Shapes: every function takes a 1-D tensor or a 2-D batch of rows and works
 along the last axis, so the P shards of a `parallel.mesh.VirtualMesh` sort
@@ -92,8 +93,9 @@ def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
     """Ascending sort along the last axis through one of the local kernels:
     ``auto`` (see `resolve_kernel`), ``lax`` (``torch.sort``), ``block``
     (`ops.block_sort.block_sort`), ``bitonic`` (`ops.bitonic.bitonic_sort`)
-    or ``pallas`` (`ops.pallas_sort.pallas_sort`); ``block`` and ``pallas``
-    take 8- and 16-bit keys through `widened_keys`."""
+    ``pallas`` (`ops.pallas_sort.pallas_sort`) or ``radix``
+    (`ops.radix.radix_sort`); ``block`` and ``pallas`` take 8- and 16-bit
+    keys through `widened_keys`.  ``auto`` never picks ``radix``."""
     if kernel == "auto":
         kernel = resolve_kernel(kernel, keys.dtype, keys.shape[-1], keys.device)
     if kernel == "lax":
@@ -111,9 +113,9 @@ def sort_with_kernel(keys: torch.Tensor, kernel: str = "auto") -> torch.Tensor:
 
         return widened_keys(pallas_sort, keys)
     if kernel == "radix":
-        raise NotImplementedError(
-            f"local kernel {kernel!r} is not yet ported to dsort_tpu_torch"
-        )
+        from dsort_tpu_torch.ops.radix import radix_sort
+
+        return radix_sort(keys)
     raise ValueError(f"unknown local kernel {kernel!r}; options: {LOCAL_KERNELS}")
 
 

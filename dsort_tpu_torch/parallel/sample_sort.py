@@ -17,7 +17,11 @@ one tensor, so each phase is one batched call:
      and the host retries with a capacity sized from the measured largest
      bucket, `next_cap_pair`); ``ring`` and ``fused`` first measure the
      ``(P, P)`` bucket histogram and size each ring step's buffer from it
-     (`parallel.exchange`, `ops.ring_kernel`), so they never retry;
+     (`parallel.exchange`, `ops.ring_kernel`), so they never retry; ``hier``
+     sizes its two-level schedule from the same histogram; a coded job
+     (``redundancy > 1``) runs ``ring`` with a replica or parity plane
+     (`parallel.coded`), from which a lost worker's range is rebuilt and a
+     straggler's range raced;
   4. merge of each destination's P received runs (`ops.block_sort.
      block_merge_runs` / ``block_merge_runs_kv`` under ``merge_kernel=
      "auto"`` on a GPU; the bitonic merge tree under ``"bitonic"``; a flat
@@ -30,6 +34,9 @@ bounds and per-shard counts are those of the reference.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -58,15 +65,26 @@ from dsort_tpu_torch.ops.local_sort import (
 from dsort_tpu_torch.parallel.device_result import DeviceSortResult
 from dsort_tpu_torch.parallel.exchange import (
     _bucket_bounds,
+    _coded_ring_exchange_kv_shard,
+    _coded_ring_exchange_shard,
+    _hier_exchange_shard,
+    _parity_ring_exchange_kv_shard,
+    _parity_ring_exchange_shard,
     _ring_exchange_kv_shard,
     _ring_exchange_shard,
     _ring_plan_kv_shard,
     _ring_plan_shard,
     check_ring_overflow,
+    hier_plan,
     note_alltoall_attempt,
+    note_coded_plan,
     note_fused_plan,
+    note_hier_plan,
     note_ring_plan,
     resolve_exchange,
+    resolve_hier_hosts,
+    resolve_redundancy,
+    resolve_redundancy_mode,
     ring_caps,
 )
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
@@ -322,16 +340,39 @@ class SampleSort:
         self.mesh = mesh
         self.job = job or JobConfig()
         self.num_workers = mesh.num_workers
-        #: Called between the ring plan and the exchange (``ring`` and
-        #: ``fused``, keys and records): the scheduler's mid-ring injection
-        #: point, where a lost worker invalidates a planned exchange.
+        #: Called between the ring plan and the exchange (``ring``, ``fused``
+        #: and ``hier``, keys and records; after the exchange on a coded
+        #: dispatch, whose plane is then placed): the scheduler's mid-ring
+        #: injection point, where a lost worker invalidates the exchange.
         self.fault_hook = None
+        #: Optional ``() -> int | None``: the mesh position of the current
+        #: measured straggler.  On a coded dispatch its range is raced —
+        #: owner fetch against reconstruction from the plane, first to
+        #: claim serves (`_serve_straggler_ring`).  No failure is involved.
+        self.straggler_fn = None
+        #: Optional ``(position) -> seconds``: extra latency the owner leg
+        #: of the race sleeps first (a slow worker's fetch;
+        #: `FaultInjector.delay_for` in the drills).
+        self.fetch_delay_fn = None
+        #: Owner-fetch threads that lost their race, left to finish in the
+        #: background; `join_stragglers` drains them.
+        self._straggler_threads: list = []
 
     def _resolve_exchange(self, exchange: str | None) -> str:
-        exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)
-        if exch == "hier":
-            raise NotImplementedError("exchange='hier' is not yet ported to dsort_tpu_torch")
-        return exch
+        return resolve_exchange(exchange, self.job.exchange, self.num_workers)
+
+    def _resolve_redundancy(self, redundancy: int | None) -> int:
+        return resolve_redundancy(redundancy, self.job.redundancy, self.num_workers)
+
+    def _resolve_redundancy_mode(self, mode: str | None) -> str:
+        return resolve_redundancy_mode(mode, self.job.redundancy_mode)
+
+    def join_stragglers(self) -> None:
+        """Drain the owner-fetch threads that lost a straggler race: call
+        before reading the journal (their late ``coded_owner_fetch`` lands
+        when the fetch completes)."""
+        while self._straggler_threads:
+            self._straggler_threads.pop().join()
 
     def _cap_pair(self, n_local: int, factor: float) -> int:
         return cap_pair_policy(n_local, factor, self.num_workers)
@@ -349,6 +390,7 @@ class SampleSort:
     def sort(
         self, data: np.ndarray, metrics: Metrics | None = None,
         keep_on_device: bool = False, exchange: str | None = None,
+        redundancy: int | None = None, redundancy_mode: str | None = None,
     ) -> np.ndarray:
         """Sort a host array; returns the globally sorted host array.
 
@@ -357,8 +399,11 @@ class SampleSort:
         back canonical, never trimmed as pads.  8- and 16-bit keys sort
         as int32 (`ops.float_order.sort_narrow_keys_via_int32`): the kernels
         and the fused ring take 32- and 64-bit keys.  ``exchange``
-        (``alltoall``, ``ring`` or ``fused``) overrides `JobConfig.exchange`
-        for this call; every choice gives the same bits.
+        (``alltoall``, ``ring``, ``fused`` or ``hier``) overrides
+        `JobConfig.exchange` for this call; every choice gives the same
+        bits.  ``redundancy`` / ``redundancy_mode`` override the coded
+        plane's settings (`parallel.coded`): r > 1 runs the ``ring``
+        schedule with the replica or parity plane.
 
         ``keep_on_device=True`` returns a `parallel.device_result.
         DeviceSortResult` instead: the merged rows stay on the device (the
@@ -366,26 +411,29 @@ class SampleSort:
         with lazy ``to_host()``, ``consume(fn)`` and
         ``validate_on_device()``.  Integer keys only: a float job's rows
         would hold the ordered-int carrier, which a next stage would
-        misread as values.
+        misread as values.  The straggler race is off there (it serves host
+        ranges); the coded fault plane still applies.
         """
         data = np.asarray(data)
+        kw = dict(exchange=exchange, redundancy=redundancy, redundancy_mode=redundancy_mode)
         if keep_on_device:
             if data.dtype.kind == "f":
                 raise TypeError(
                     "keep_on_device supports integer keys only (float keys ride as "
                     "mapped ordered ints the consumer would misread); use sort() for floats"
                 )
-            return self._sort_device_impl(data, metrics, exchange)
+            return self._sort_device_impl(data, metrics, **kw)
         if data.dtype.kind == "f":
-            return sort_float_keys_via_uint(self.sort, data, metrics, exchange=exchange)
+            return sort_float_keys_via_uint(self.sort, data, metrics, **kw)
         if is_narrow_int_dtype(data.dtype):
-            return sort_narrow_keys_via_int32(self.sort, data, metrics, exchange=exchange)
+            return sort_narrow_keys_via_int32(self.sort, data, metrics, **kw)
         if len(data) == 0:
             return data.copy()
-        return self._sort_ranges_impl(data, metrics, exchange)[0]
+        return self._sort_ranges_impl(data, metrics, **kw)[0]
 
     def _sort_device_impl(
-        self, data: np.ndarray, metrics: Metrics | None, exchange: str | None
+        self, data: np.ndarray, metrics: Metrics | None, exchange: str | None,
+        redundancy: int | None = None, redundancy_mode: str | None = None,
     ):
         """`keep_on_device` core: dispatch, then wrap the merged rows.
 
@@ -400,23 +448,26 @@ class SampleSort:
             return DeviceSortResult(empty, np.zeros(1, np.int64), 0, metrics)
         narrow = is_narrow_int_dtype(data.dtype)
         merged, c = self._dispatch_keys(
-            data.astype(np.int32) if narrow else data, PhaseTimer(metrics), metrics, exchange
+            data.astype(np.int32) if narrow else data, PhaseTimer(metrics), metrics,
+            exchange, redundancy, redundancy_mode, allow_straggler=False,
         )
         keys = narrow_from_int32(merged, key_dtype) if narrow else from_signed_keys(merged, key_dtype)
         return DeviceSortResult(keys, c, len(data), metrics)
 
     def sort_ranges(
         self, data: np.ndarray, metrics: Metrics | None = None,
-        exchange: str | None = None,
+        exchange: str | None = None, redundancy: int | None = None,
+        redundancy_mode: str | None = None,
     ) -> list[np.ndarray]:
         """Like `sort`, but returns the per-shard key ranges: range ``i`` is
         the ``i``-th interval of the key space, a view into one buffer laid
         out in global order.  Float keys are the caller's to map."""
-        return self._sort_ranges_impl(data, metrics, exchange)[1]
+        return self._sort_ranges_impl(data, metrics, exchange, redundancy, redundancy_mode)[1]
 
     def _sort_ranges_impl(
         self, data: np.ndarray, metrics: Metrics | None = None,
-        exchange: str | None = None,
+        exchange: str | None = None, redundancy: int | None = None,
+        redundancy_mode: str | None = None,
     ) -> tuple[np.ndarray, list[np.ndarray]]:
         data = np.asarray(data)
         if np.issubdtype(data.dtype, np.floating):
@@ -425,26 +476,53 @@ class SampleSort:
             return data.copy(), [data.copy()]
         metrics = metrics if metrics is not None else Metrics()
         timer = PhaseTimer(metrics)
-        merged, c = self._dispatch_keys(data, timer, metrics, exchange)
+        merged, c = self._dispatch_keys(data, timer, metrics, exchange, redundancy, redundancy_mode)
         with timer.phase("assemble"):
             return self._assemble_ranges(merged, c, len(data), data.dtype)
 
     def _dispatch_keys(
         self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics,
-        exchange: str | None = None,
-    ) -> tuple[torch.Tensor, np.ndarray]:
+        exchange: str | None = None, redundancy: int | None = None,
+        redundancy_mode: str | None = None, allow_straggler: bool = True,
+    ) -> tuple[torch.Tensor | list, np.ndarray]:
         """Upload and run the shard program; ``alltoall`` with
         measured-capacity retries, ``ring`` / ``fused`` through
-        `_dispatch_keys_ring`.
+        `_dispatch_keys_ring`, ``hier`` through `_dispatch_keys_hier`.
+
+        A resolved ``redundancy > 1`` forces ``ring`` (warned): the padded
+        transpose has no per-step seam for the plane and the exchange
+        kernel carries no plane slots.  ``hier`` downgrades to ``ring``
+        (warned) when no grouping of at least 2 hosts divides the mesh.
 
         Returns ``(merged, c)``: the ``(P, width)`` device rows and the host
         copy of the per-shard counts — fetched together with the retry
         scalars in one small device-to-host copy, which is also the
-        completion barrier.
+        completion barrier — or, after a straggler serve, the host ranges
+        (signed carrier) in place of the rows.
         """
+        red = self._resolve_redundancy(redundancy)
+        mode = self._resolve_redundancy_mode(redundancy_mode)
         exch = self._resolve_exchange(exchange)
+        if red > 1 and exch != "ring":
+            log.warning(
+                "redundancy=%d needs the ring schedule; overriding exchange=%r to "
+                "'ring' for this dispatch", red, exch,
+            )
+            exch = "ring"
+        if exch == "hier":
+            hosts = resolve_hier_hosts(self.job.hier_hosts, self.num_workers)
+            if hosts >= 2:
+                return self._dispatch_keys_hier(data, timer, metrics, hosts)
+            log.warning(
+                "exchange='hier' needs >= 4 workers grouped into >= 2 hosts (have %d); "
+                "downgrading to the flat ring schedule", self.num_workers,
+            )
+            exch = "ring"
         if exch in ("ring", "fused"):
-            return self._dispatch_keys_ring(data, timer, metrics, fused=exch == "fused")
+            return self._dispatch_keys_ring(
+                data, timer, metrics, fused=exch == "fused", redundancy=red, mode=mode,
+                allow_straggler=allow_straggler,
+            )
         p = self.num_workers
         xs, cj, n_local = self._upload_keys(data, timer)
         cap_pair = self._cap_pair(n_local, self.job.capacity_factor)
@@ -480,41 +558,72 @@ class SampleSort:
 
     def _plan_caps(
         self, hist: torch.Tensor, n_local: int, bytes_per_slot: int, metrics: Metrics,
-        fused: bool,
+        fused: bool, redundancy: int = 1, mode: str = "replicate",
     ) -> tuple[int, ...]:
         """Size the ring's steps from the measured histogram (the one extra
-        ``(P, P)`` device-to-host copy the ring costs) and journal the plan."""
+        ``(P, P)`` device-to-host copy the ring costs) and journal the plan
+        (the coded plan where ``redundancy > 1``)."""
         hist_h = hist.cpu().numpy()
         caps = ring_caps(hist_h, n_local, self.num_workers)
-        note = note_fused_plan if fused else note_ring_plan
-        note(
-            metrics, caps, hist_h, n_local, self.num_workers, bytes_per_slot,
-            self.job.capacity_factor,
-        )
+        args = (metrics, caps, hist_h, n_local, self.num_workers, bytes_per_slot,
+                self.job.capacity_factor)
+        if redundancy > 1:
+            note_coded_plan(*args, redundancy, mode=mode)
+        else:
+            (note_fused_plan if fused else note_ring_plan)(*args)
         return caps
 
+    def _coded_hook(self, snapshot) -> None:
+        """The fault hook of a coded dispatch, after its exchange: a loss
+        surfacing here leaves the plane placed, so the raised
+        `WorkerFailure` carries the snapshot (``snapshot()``) the caller
+        recovers from by a local merge instead of a re-run."""
+        from dsort_tpu_torch.scheduler.fault import WorkerFailure
+
+        try:
+            self.fault_hook()
+        except WorkerFailure as e:
+            e.coded_state = snapshot()
+            raise
+
     def _dispatch_keys_ring(
-        self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics, fused: bool
-    ) -> tuple[torch.Tensor, np.ndarray]:
+        self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics, fused: bool,
+        redundancy: int = 1, mode: str = "replicate", allow_straggler: bool = True,
+    ) -> tuple[torch.Tensor | list, np.ndarray]:
         """Ring counterpart of `_dispatch_keys`: plan, size, exchange.  No
         retry exists: every step's buffer is sized from the measured
         histogram before the exchange runs, and an overflow is raised as an
-        invariant violation."""
+        invariant violation.
+
+        ``redundancy > 1`` runs the coded schedule: the same plan and caps
+        plus the replica (``mode="replicate"``) or parity plane; the fault
+        hook then fires after the exchange (`_coded_hook`).  When
+        `straggler_fn` names a position, its range is raced against a
+        reconstruction from the plane (`_serve_straggler_ring`) and the
+        dispatch returns host ranges in place of the rows.
+        """
         from dsort_tpu_torch.ops.ring_kernel import fused_ring_exchange_shard
 
         p = self.num_workers
+        coded = redundancy > 1
         xs, cj, n_local = self._upload_keys(data, timer)
         with timer.phase("spmd_sort"):
             xs_sorted, splitters, hist = _ring_plan_shard(
                 xs, cj, mesh=self.mesh, oversample=self.job.oversample,
                 kernel=self.job.local_kernel,
             )
-            caps = self._plan_caps(hist, n_local, data.dtype.itemsize, metrics, fused)
-        if self.fault_hook is not None:
+            caps = self._plan_caps(
+                hist, n_local, data.dtype.itemsize, metrics, fused, redundancy, mode
+            )
+        if not coded and self.fault_hook is not None:
             self.fault_hook()
         kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
         with timer.phase("spmd_sort"):
-            if fused:
+            if coded:
+                shard = _parity_ring_exchange_shard if mode == "parity" else _coded_ring_exchange_shard
+                outs = shard(xs_sorted, cj, splitters, redundancy=redundancy, **kw)
+                merged, out_counts, overflow = outs[:3]
+            elif fused:
                 merged, out_counts, overflow = fused_ring_exchange_shard(
                     xs_sorted, cj, splitters, hist, **kw
                 )
@@ -522,17 +631,149 @@ class SampleSort:
                 merged, out_counts, overflow = _ring_exchange_shard(
                     xs_sorted, cj, splitters, **kw
                 )
+        if coded:
+            def snapshot():
+                return self._snapshot_coded(caps, redundancy, len(data), mode, outs, data.dtype)
+
+            if self.fault_hook is not None:
+                self._coded_hook(snapshot)
+            s = self.straggler_fn() if allow_straggler and self.straggler_fn is not None else None
+            if s is not None and 0 <= int(s) < p:
+                with timer.phase("spmd_sort"):
+                    return self._serve_straggler_ring(int(s), outs[0], snapshot, metrics)
+        with timer.phase("spmd_sort"):
             stats = torch.cat([out_counts.long(), overflow.long()]).cpu().numpy()
         check_ring_overflow(stats[p:])
         return merged, stats[:p]
 
+    def _dispatch_keys_hier(
+        self, data: np.ndarray, timer: PhaseTimer, metrics: Metrics, hosts: int
+    ) -> tuple[torch.Tensor, np.ndarray]:
+        """``hier`` counterpart of `_dispatch_keys_ring`: plan once, reduce
+        the measured histogram to the host matrix, run the three phases.
+        No retry: every phase's buffer is sized from the histogram before
+        the exchange, so an overflow is an invariant violation.  The flat
+        ring's caps for the same histogram price ``dcn_bytes_saved``."""
+        p = self.num_workers
+        xs, cj, n_local = self._upload_keys(data, timer)
+        with timer.phase("spmd_sort"):
+            xs_sorted, splitters, hist = _ring_plan_shard(
+                xs, cj, mesh=self.mesh, oversample=self.job.oversample,
+                kernel=self.job.local_kernel,
+            )
+            hist_h = hist.cpu().numpy()
+        caps = ring_caps(hist_h, n_local, p)
+        plan = hier_plan(hist_h, n_local, p, hosts)
+        note_hier_plan(
+            metrics, plan, caps, hist_h, n_local, p, data.dtype.itemsize,
+            self.job.capacity_factor,
+        )
+        if self.fault_hook is not None:
+            self.fault_hook()
+        with timer.phase("spmd_sort"):
+            merged, out_counts, overflow = _hier_exchange_shard(
+                xs_sorted, cj, splitters, hosts=plan.hosts, agg_cap=plan.agg_cap,
+                leg_caps=plan.leg_caps, scatter_cap=plan.scatter_cap,
+                merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel,
+            )
+            stats = torch.cat([out_counts.long(), overflow.long()]).cpu().numpy()
+        check_ring_overflow(stats[p:])
+        return merged, stats[:p]
+
+    def _snapshot_coded(
+        self, caps: tuple, redundancy: int, n: int, mode: str, outs, key_dtype,
+        kv: bool = False,
+    ):
+        """Host snapshot of one coded exchange (`parallel.coded`): the
+        survivors' trimmed ranges and the plane, the overflow invariant
+        checked first.  ``outs`` is the coded shard program's whole output."""
+        from dsort_tpu_torch.parallel import coded
+
+        snap = {
+            (False, "replicate"): coded.snapshot_state,
+            (False, "parity"): coded.snapshot_parity_state,
+            (True, "replicate"): coded.snapshot_kv_state,
+            (True, "parity"): coded.snapshot_parity_kv_state,
+        }[(kv, mode)]
+        return snap(self.num_workers, redundancy, caps, n, *outs, key_dtype=np.dtype(key_dtype))
+
+    def _serve_straggler_ring(self, s: int, merged: torch.Tensor, snapshot, metrics: Metrics):
+        """Serve the straggler's range from whichever source finishes first:
+        the owner's fetch or a reconstruction from the plane.
+
+        Two legs race under one `parallel.coded.StragglerClaim`
+        (exactly-once).  OWNER: a thread fetches row ``s`` after the extra
+        latency `fetch_delay_fn` gives it, and always journals
+        ``coded_owner_fetch`` (won or lost), possibly after the sort
+        returned (`join_stragglers` drains it).  HOLDER: inline, takes the
+        snapshot (every other range comes from it anyway) and rebuilds
+        range ``s`` as if ``s`` were lost.  Only a holder win journals
+        ``coded_straggler_serve``; both copies have the same bits.
+        Returns ``(host ranges in the signed carrier, c)``.
+        """
+        from dsort_tpu_torch.device import device_scope
+        from dsort_tpu_torch.parallel.coded import CodedBudgetExceeded, StragglerClaim
+
+        claim = StragglerClaim()
+        owner_box = {}
+
+        def owner_leg():
+            t0 = time.perf_counter()
+            delay = self.fetch_delay_fn(s) if self.fetch_delay_fn is not None else None
+            if delay:
+                time.sleep(float(delay))
+            with device_scope(merged.device):
+                row = merged[s].cpu().numpy()
+            won = claim.claim("owner")
+            if won:
+                owner_box["row"] = row
+            metrics.event(
+                "coded_owner_fetch", range=int(s), won=bool(won),
+                wall_s=round(time.perf_counter() - t0, 6),
+            )
+
+        t = threading.Thread(target=owner_leg, daemon=True)
+        t.start()
+        t0 = time.perf_counter()
+        state = snapshot()
+        try:
+            ranges, info = state.reconstruct([s])
+        except CodedBudgetExceeded:
+            # The plane cannot cover s (a degenerate tiny mesh): the owner's
+            # fetch is authoritative.
+            t.join()
+            ranges = list(state.ranges)
+            ranges[s] = owner_box["row"][: len(state.ranges[s])]
+            return ranges, np.array([len(r) for r in ranges], np.int64)
+        if claim.claim("holder"):
+            metrics.bump("coded_straggler_serves")
+            metrics.event(
+                "coded_straggler_serve", range=int(s), mode=state.mode,
+                holders=info.get("holders", {}).get(s),
+                recovered_keys=int(len(ranges[s])),
+                wall_s=round(time.perf_counter() - t0, 6),
+            )
+            # The owner's late response is dropped on arrival.
+            self._straggler_threads.append(t)
+        else:
+            t.join()
+            ranges[s] = owner_box["row"][: len(ranges[s])]
+        return ranges, np.array([len(r) for r in ranges], np.int64)
+
     def _assemble_ranges(
-        self, merged: torch.Tensor, c: np.ndarray, n: int, dtype
+        self, merged, c: np.ndarray, n: int, dtype
     ) -> tuple[np.ndarray, list[np.ndarray]]:
         """Trim each row to its count on the device, copy the ``n`` keys to
-        the host once, and hand out per-shard views of that buffer."""
+        the host once, and hand out per-shard views of that buffer.  After a
+        straggler serve ``merged`` is the list of host ranges already."""
         key_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
-        out = from_signed_keys(_trim_rows(merged, c, n, "keys"), key_dtype).cpu().numpy()
+        if isinstance(merged, list):
+            if int(c.sum()) != n:
+                raise RuntimeError(f"range counts sum to {int(c.sum())}, expected {n} keys")
+            flat = torch.from_numpy(np.concatenate(merged))
+        else:
+            flat = _trim_rows(merged, c, n, "keys")
+        out = from_signed_keys(flat, key_dtype).cpu().numpy()
         ranges, off = [], 0
         for ci in c:
             ranges.append(out[off : off + int(ci)])
@@ -546,6 +787,8 @@ class SampleSort:
         metrics: Metrics | None = None,
         secondary: np.ndarray | None = None,
         exchange: str | None = None,
+        redundancy: int | None = None,
+        redundancy_mode: str | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """TeraSort-style key+payload sort; payload rows (``payload[i]`` of
         any trailing shape) follow their keys.
@@ -555,19 +798,33 @@ class SampleSort:
         8-9 (`data.ingest.terasort_secondary`).  The order of records with
         equal keys (and secondaries) is not specified.  ``exchange``
         overrides `JobConfig.exchange`; a secondary needs the ``alltoall``
-        combine and ``hier`` runs as ``ring`` (both warned).
+        combine and ``hier`` runs as ``ring`` (both warned).  ``redundancy
+        > 1`` runs the coded ring with the payload in the plane too; a
+        secondary key has no coded channel, so that job runs uncoded
+        (warned).
         """
         keys = np.asarray(keys)
         payload = np.asarray(payload)
+        kw = dict(exchange=exchange, redundancy=redundancy, redundancy_mode=redundancy_mode)
         if keys.dtype.kind == "f":
-            return sort_float_keys_via_uint(
-                self.sort_kv, keys, payload, metrics, secondary, exchange=exchange
-            )
+            return sort_float_keys_via_uint(self.sort_kv, keys, payload, metrics, secondary, **kw)
         if is_narrow_int_dtype(keys.dtype):
-            return sort_narrow_keys_via_int32(
-                self.sort_kv, keys, payload, metrics, secondary, exchange=exchange
+            return sort_narrow_keys_via_int32(self.sort_kv, keys, payload, metrics, secondary, **kw)
+        exch = self._resolve_exchange(exchange)
+        red = self._resolve_redundancy(redundancy)
+        mode = self._resolve_redundancy_mode(redundancy_mode)
+        if red > 1 and secondary is not None:
+            log.warning(
+                "redundancy=%d needs the ring schedule, which has no secondary-key "
+                "channel; this two-level-key sort runs uncoded (re-run recovery)", red,
             )
-        exch = resolve_exchange(exchange, self.job.exchange, self.num_workers)
+            red = 1
+        if red > 1 and exch != "ring":
+            log.warning(
+                "redundancy=%d needs the ring schedule; overriding exchange=%r to "
+                "'ring' for this kv dispatch", red, exch,
+            )
+            exch = "ring"
         if exch == "hier":
             log.warning("exchange='hier' is keys-only; this kv sort uses the ring schedule")
             exch = "ring"
@@ -599,7 +856,8 @@ class SampleSort:
         slot_bytes = keys.dtype.itemsize + int(np.prod(sv.shape[2:], dtype=np.int64)) * sv.dtype.itemsize
         if exch in ("ring", "fused"):
             out_k, out_v, c = self._dispatch_kv_ring(
-                xs, vs, cj, n_local, slot_bytes, timer, metrics, fused=exch == "fused"
+                xs, vs, cj, n_local, slot_bytes, timer, metrics, fused=exch == "fused",
+                redundancy=red, mode=mode, n=len(keys), key_dtype=keys.dtype,
             )
         else:
             cap_pair = self._cap_pair(n_local, self.job.capacity_factor)
@@ -629,24 +887,34 @@ class SampleSort:
 
     def _dispatch_kv_ring(
         self, xs, vs, cj, n_local: int, slot_bytes: int, timer: PhaseTimer,
-        metrics: Metrics, fused: bool,
+        metrics: Metrics, fused: bool, redundancy: int = 1, mode: str = "replicate",
+        n: int = 0, key_dtype=None,
     ):
         """kv ring dispatch: plan (record local sort + histogram), size,
         exchange.  ``slot_bytes`` (key + payload row) prices the wire bytes:
-        each payload row moves once per step on both schedules."""
+        each payload row moves once per step on both schedules.
+        ``redundancy > 1`` runs the coded record schedule, the payload rows
+        covered by the plane like their keys; its fault hook fires after the
+        exchange with the record snapshot attached (`_coded_hook`)."""
         from dsort_tpu_torch.ops.ring_kernel import fused_ring_exchange_kv_shard
 
         p = self.num_workers
+        coded = redundancy > 1
         with timer.phase("spmd_sort"):
             ks, vsort, splitters, hist = _ring_plan_kv_shard(
                 xs, vs, cj, mesh=self.mesh, oversample=self.job.oversample
             )
-            caps = self._plan_caps(hist, n_local, slot_bytes, metrics, fused)
-        if self.fault_hook is not None:
+            caps = self._plan_caps(hist, n_local, slot_bytes, metrics, fused, redundancy, mode)
+        if not coded and self.fault_hook is not None:
             self.fault_hook()
         kw = dict(caps=caps, merge_kernel=self.job.merge_kernel, kernel=self.job.local_kernel)
         with timer.phase("spmd_sort"):
-            if fused:
+            if coded:
+                shard = (_parity_ring_exchange_kv_shard if mode == "parity"
+                         else _coded_ring_exchange_kv_shard)
+                outs = shard(ks, vsort, cj, splitters, redundancy=redundancy, **kw)
+                out_k, out_v, out_counts, overflow = outs[:4]
+            elif fused:
                 out_k, out_v, out_counts, overflow = fused_ring_exchange_kv_shard(
                     ks, vsort, cj, splitters, hist, **kw
                 )
@@ -654,6 +922,10 @@ class SampleSort:
                 out_k, out_v, out_counts, overflow = _ring_exchange_kv_shard(
                     ks, vsort, cj, splitters, **kw
                 )
+        if coded and self.fault_hook is not None:
+            self._coded_hook(lambda: self._snapshot_coded(
+                caps, redundancy, n, mode, outs, key_dtype, kv=True))
+        with timer.phase("spmd_sort"):
             stats = torch.cat([out_counts.long(), overflow.long()]).cpu().numpy()
         check_ring_overflow(stats[p:])
         return out_k, out_v, stats[:p]

@@ -52,12 +52,17 @@ survivors come with a ``torch.distributed`` group of several cards.
 re-form invalidates the handles the scheduler has returned, and each re-runs
 on the live mesh at its next use.
 
-Not ported yet, each refused with a "not yet ported" error: the coded
-``redundancy`` plane, the ``hier``
-exchange (refused by `SampleSort`) and checkpoints of shards and ranges
-(``checkpoint_dir`` is refused by `JobConfig.from_dict`).  The flight
-recorder (``obs.flight``) is not ported: neither scheduler writes flight
-bundles.
+With a coded exchange (``redundancy`` > 1, `parallel.coded`) a worker lost
+mid-ring costs no re-run: the failed attempt's snapshot rebuilds the dead
+ranges by a local merge of a survivor's replica or parity slots
+(`_try_coded_recovery`), and only a loss past the plane's budget re-runs.
+Under ``hier`` every re-form journals how the host grouping re-planned
+(``hier_reform``).  A worker `FaultInjector.slow` names is raced by the
+coded plane's straggler serve (`SampleSort.straggler_fn`).
+
+Not ported yet: checkpoints of shards and ranges (``checkpoint_dir`` is
+refused by `JobConfig.from_dict`) and the flight recorder (``obs.flight``):
+neither scheduler writes flight bundles.
 """
 
 from __future__ import annotations
@@ -81,6 +86,7 @@ from dsort_tpu_torch.ops.float_order import (
 )
 from dsort_tpu_torch.ops.local_sort import sort_with_kernel
 from dsort_tpu_torch.ops.merge import merge_sorted_host
+from dsort_tpu_torch.parallel.exchange import resolve_hier_hosts
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 from dsort_tpu_torch.parallel.sample_sort import SampleSort
 from dsort_tpu_torch.scheduler.fault import (
@@ -175,11 +181,17 @@ def _size_bucket(n: int) -> int:
     return 1 << max(int(n - 1).bit_length(), 0) if n > 1 else 1
 
 
-def _sort_kwargs(exchange) -> dict:
+def _sort_kwargs(exchange, redundancy=None, redundancy_mode=None) -> dict:
     """Per-call knob kwargs, omitted when unset: `None` means "JobConfig
     decides" and needs no plumbing — wrappers around SampleSort.sort (fault
-    drills monkeypatch it) keep their original signature working."""
-    return {} if exchange is None else {"exchange": exchange}
+    drills monkeypatch it) keep their original signature working.  Built in
+    one place, so no recovery path can drop a knob another threads through."""
+    kw = {} if exchange is None else {"exchange": exchange}
+    if redundancy is not None:
+        kw["redundancy"] = redundancy
+    if redundancy_mode is not None:
+        kw["redundancy_mode"] = redundancy_mode
+    return kw
 
 
 class DeviceExecutor:
@@ -610,6 +622,38 @@ class SpmdScheduler:
         self._warm_waits.add(warm)
         return box["r"]
 
+    def _try_coded_recovery(self, e: WorkerFailure, live: list[int], metrics: Metrics, data):
+        """Coded reconstruction of a failed attempt (`parallel.coded`).
+
+        Returns the full sorted output when the attempt's exchange carried
+        a plane (``e.coded_state``) that covers the losses: a local merge of
+        a survivor's slots, journaled ``coded_recover`` / ``parity_recover``
+        with the ``coded_recoveries`` / ``coded_recovered_keys`` counters.
+        Returns None — journaling ``coded_budget_exceeded`` where the
+        losses exceed the budget — and the caller re-runs.
+        """
+        from dsort_tpu_torch.parallel.coded import dead_positions, journal_recovery
+
+        state = getattr(e, "coded_state", None)
+        if state is None:
+            return None
+        positions = dead_positions(e, live)
+        rec = journal_recovery(metrics, state, positions)
+        if rec is None:
+            log.warning(
+                "coded recovery over budget (positions %s dead at redundancy=%d); "
+                "degrading to the re-run path", sorted(positions), state.redundancy,
+            )
+            return None
+        out, info = rec
+        log.warning(
+            "coded recovery: %d key(s) of %d dead range(s) reconstructed from the "
+            "plane — zero keys re-sorted, zero re-dispatch",
+            info["recovered_keys"], len(positions),
+        )
+        # 8- and 16-bit keys sorted as int32 (`sort_narrow_keys_via_int32`).
+        return out.astype(data.dtype, copy=False)
+
     def sort(
         self,
         data: np.ndarray,
@@ -618,32 +662,32 @@ class SpmdScheduler:
         keep_on_device: bool = False,
         exchange: str | None = None,
         redundancy: int | None = None,
+        redundancy_mode: str | None = None,
     ) -> np.ndarray:
         """Whole-mesh sort of a host array; returns the sorted host array.
 
-        ``exchange`` (``alltoall`` | ``ring`` | ``fused``, default
+        ``exchange`` (``alltoall`` | ``ring`` | ``fused`` | ``hier``, default
         `JobConfig.exchange`) selects the shuffle schedule with the SAME
         fault contract: a worker lost mid-ring (between the plan and the
         exchange, `SampleSort.fault_hook`) invalidates the exchange, the
         mesh re-forms over the survivors and the job re-runs there with a
-        fresh plan.  ``job_id`` labels the journal's ``job_start``.
-        With ``keep_on_device=True`` the result is a `DeviceSortResult`
-        (integer keys only) under the same fault discipline; a later
-        re-form invalidates it and it re-runs on the live mesh at its next
-        use.  ``redundancy`` above 1 is not ported yet.
+        fresh plan; under ``hier`` the re-form journals the re-planned host
+        grouping (``hier_reform``).  ``redundancy`` / ``redundancy_mode``
+        (default `JobConfig`'s) run the coded ring: a loss the plane covers
+        is recovered from the failed attempt's snapshot by a local merge,
+        with one ``attempt_start`` and zero keys re-sorted.  ``job_id``
+        labels the journal's ``job_start``.  With ``keep_on_device=True``
+        the result is a `DeviceSortResult` (integer keys only) under the
+        same fault discipline, recovered by re-run (a handle is no host
+        snapshot); a later re-form invalidates it and it re-runs on the
+        live mesh at its next use.
         """
-        if redundancy is not None and redundancy != 1:
-            raise NotImplementedError(
-                "redundancy > 1 (the coded ring exchange) is not yet ported "
-                "to dsort_tpu_torch"
-            )
         data = np.asarray(data)
         if keep_on_device and is_float_key_dtype(data.dtype):
             raise TypeError("keep_on_device supports integer keys only; use sort() for floats")
+        knobs = _sort_kwargs(exchange, redundancy, redundancy_mode)
         if is_float_key_dtype(data.dtype):
-            return sort_float_keys_via_uint(
-                self.sort, data, metrics, job_id, exchange=exchange,
-            )
+            return sort_float_keys_via_uint(self.sort, data, metrics, job_id, **knobs)
         metrics = metrics if metrics is not None else Metrics()
         metrics.event("job_start", mode="spmd", n_keys=len(data), job_id=job_id)
         self.table.revive_all()
@@ -679,14 +723,16 @@ class SpmdScheduler:
                         VirtualMesh(len(live), self.device), self.job
                     )
                 # Mid-ring injection point: the hook runs between the ring
-                # plan and the exchange (SampleSort.fault_hook), so a drill
-                # can lose a worker with the sorted shards on the device and
-                # the schedule planned — the exchange is invalidated and the
-                # job re-runs on the re-formed mesh.
+                # plan and the exchange (SampleSort.fault_hook; after the
+                # exchange on a coded dispatch), so a drill can lose a
+                # worker with the sorted shards on the device and the
+                # schedule planned.
                 if self.injector is not None:
                     def ring_hook():
                         # Sweep EVERY live worker and aggregate, so the
-                        # raised failure carries every loss of the attempt.
+                        # raised failure carries every loss of the attempt
+                        # (a range's owner and its replica holder both lost
+                        # is the coded plane's over-budget case).
                         failed = []
                         for i in live:
                             try:
@@ -698,10 +744,20 @@ class SpmdScheduler:
                             err.workers = failed
                             raise err
 
+                    def straggler_pos():
+                        # The injector names a WORKER; SampleSort thinks in
+                        # mesh positions.
+                        w = self.injector.straggler()
+                        return live.index(w) if w in live else None
+
                     ss.fault_hook = ring_hook
+                    ss.straggler_fn = straggler_pos
+                    ss.fetch_delay_fn = lambda pos: (
+                        self.injector.delay_for(live[pos]) if 0 <= pos < len(live) else 0.0
+                    )
                 else:
-                    ss.fault_hook = None
-                kw = _sort_kwargs(exchange)
+                    ss.fault_hook = ss.straggler_fn = ss.fetch_delay_fn = None
+                kw = dict(knobs)
                 if keep_on_device:
                     kw["keep_on_device"] = True
                 with device_scope(self.device):
@@ -719,7 +775,7 @@ class SpmdScheduler:
                     # A later re-form invalidates the handle; the hook
                     # re-sorts on whatever mesh is live then.
                     out._rerun = lambda: self.sort(
-                        data, metrics=metrics, keep_on_device=True, exchange=exchange,
+                        data, metrics=metrics, keep_on_device=True, **knobs
                     )
                     self._register_handle(out)
                 metrics.event(
@@ -739,9 +795,31 @@ class SpmdScheduler:
                     self.table.mark_dead(w)
                     metrics.event("worker_dead", worker=w, stage=e.stage)
                 metrics.bump("mesh_reforms")
-                metrics.event("mesh_reform", survivors=len(live) - len(dead_workers))
+                survivors = len(live) - len(dead_workers)
+                metrics.event("mesh_reform", survivors=survivors)
+                if (exchange or self.job.exchange) == "hier":
+                    # The re-formed mesh re-resolves its host grouping: a
+                    # lost worker re-forms within its host; a lost host
+                    # re-plans the legs on the largest divisor the survivors
+                    # support, or downgrades to the flat ring.  Journaled
+                    # before the re-run, so the decision shows.
+                    before = resolve_hier_hosts(self.job.hier_hosts, len(live))
+                    after = resolve_hier_hosts(self.job.hier_hosts, survivors)
+                    metrics.event(
+                        "hier_reform", survivors=survivors, hosts_before=before,
+                        hosts_after=after, downgraded=after < 2,
+                    )
                 self._invalidate_handles("mesh_reform", metrics)
                 self._notify_reform(dead_workers)
+                # A coded attempt's survivors already hold the dead ranges:
+                # recover by a local merge instead of looping into the re-run.
+                if not keep_on_device:
+                    out = self._try_coded_recovery(e, live, metrics, data)
+                    if out is not None:
+                        metrics.event(
+                            "job_done", n_keys=len(data), counters=dict(metrics.counters),
+                        )
+                        return out
                 time.sleep(self.job.settle_delay_s)
             except ProgramWaitTimeout as e:
                 # The in-flight wait lapsed: probe every worker to find the

@@ -4,8 +4,8 @@ Counterpart of ``dsort_tpu/utils/events.py``'s journal: a thread-safe log of
 typed, monotonic-timestamped records that a `Metrics` fans its events into
 (``Metrics(journal=EventLog())``), persisted as JSONL in the reference's
 record format (``seq``, ``t``, ``mono``, ``type``, then the fields) — the
-``--journal`` artifact of ``cli run``.  Rotation, the Chrome-trace export
-and the human report are not ported yet.
+``--journal`` artifact of ``cli run``; `COUNTERS` names every counter.
+Rotation, the Chrome-trace export and the human report are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +59,101 @@ EVENT_TYPES: dict[str, str] = {
                        "result (ok, n)",
     "device_consume": "a next stage consumed a device-resident result "
                       "(n_keys, donated)",
+    # The coded redundancy plane (parallel.coded):
+    "coded_replica_ship": "one coded exchange planned its redundancy plane "
+                          "— full bucket copies to r-1 ring successors "
+                          "(mode=replicate) or GF(256) parity slots "
+                          "(mode=parity) (redundancy, mode, slots, bytes)",
+    "coded_recover": "a dead worker's range was reconstructed by a LOCAL "
+                     "merge of a survivor's replica slots — zero keys "
+                     "re-sorted, zero re-dispatch (dead, holders, "
+                     "recovered_keys, replica_bytes, redundancy, mode, "
+                     "wall_s — the host merge — and fetch_s — the "
+                     "snapshot's device-to-host copy)",
+    "coded_budget_exceeded": "losses exceeded the replica budget (a dead "
+                             "range's every holder dead too); recovery "
+                             "degraded cleanly to the re-run path (dead, "
+                             "redundancy)",
+    "parity_recover": "a dead worker's range was reconstructed through the "
+                      "GF(256) parity plane — survivors' retained out-"
+                      "buckets plus XOR/RAID-6 parity slots solved the "
+                      "missing buckets (dead, holders, recovered_keys, "
+                      "replica_bytes, redundancy, mode, wall_s, fetch_s)",
+    "coded_straggler_serve": "a range owned by the measured straggler was "
+                             "served from the replica/parity plane because "
+                             "the reconstruction finished before the "
+                             "owner's fetch — the exactly-once claim of "
+                             "the straggler-first protocol (range, mode, "
+                             "holders, recovered_keys, wall_s)",
+    "coded_owner_fetch": "the straggler-first race's owner leg completed — "
+                         "``won`` says whether the owner's own fetch beat "
+                         "the reconstruction (the serve event is then "
+                         "absent) or arrived late and was discarded "
+                         "(range, won, wall_s)",
+    # The hierarchical exchange (parallel.exchange):
+    "hier_exchange_plan": "one two-level exchange was sized from the (H,H) "
+                          "host matrix (hosts, dev_per_host, legs, agg_cap, "
+                          "scatter_cap, dcn_bytes, intra_bytes, "
+                          "flat_ring_dcn_bytes)",
+    "hier_exchange_leg": "one planned host-shift DCN leg of the two-level "
+                         "exchange — H aggregated transfers, one per "
+                         "(src-host, dst-host) pair (shift, cap, bytes)",
+    "hier_reform": "the host grouping re-planned after a loss — a lost "
+                   "worker re-forms within its host; a lost host shrinks "
+                   "the (H,H) legs to survivors or downgrades to the flat "
+                   "ring (survivors, hosts_before, hosts_after, downgraded)",
+}
+
+#: Every `Metrics.bump` name in this package, with its meaning, under the
+#: reference's names (``tests/test_torch_coded.py`` greps the package to
+#: keep it exhaustive).
+COUNTERS: dict[str, str] = {
+    "reassignments": "shards moved to another worker after a failure",
+    "heartbeat_timeouts": "taskpool attempts abandoned on a lapsed wait",
+    "cold_wait_retries": "cold-key waits extended (likely a first build)",
+    "transient_retries": "transient runtime errors retried in place",
+    "device_runtime_errors": "real CUDA runtime failures routed to recovery",
+    "device_deaths": "workers marked dead after failed probes",
+    "mesh_reforms": "SPMD mesh re-formed over surviving workers",
+    "spmd_wait_timeouts": "bounded in-flight SPMD program waits lapsed",
+    "capacity_retries": "all_to_all bucket overflows resized and re-run",
+    "fused_small_jobs": "jobs served by the fused single-program path",
+    "fused_fallbacks": "fused-path failures retried on the SPMD scheduler",
+    "device_handles": "device-resident result handles made",
+    "device_handle_reruns": "invalidated device-resident handles re-run on "
+                            "the current mesh",
+    "device_validates": "on-device validations executed",
+    "device_consumes": "device-resident results consumed by a next stage",
+    "exchange_ring_steps": "ring exchange transfer steps executed",
+    "exchange_bytes_on_wire": "bytes the bucket exchange put on the wire "
+                              "(every schedule; whole mesh; planned counts "
+                              "on one card)",
+    "exchange_bytes_saved": "wire bytes the ring schedule avoided vs the "
+                            "policy-sized padded all_to_all",
+    "fused_exchange_launches": "fused ring kernel launches (each replaces "
+                               "P-1 per-step exchange dispatches)",
+    "fused_exchange_steps": "steps executed inside fused ring kernel "
+                            "launches",
+    "coded_recoveries": "worker losses recovered by a local replica-slot "
+                        "merge instead of a re-run (parallel.coded)",
+    "coded_replica_bytes": "wire bytes the coded replica plane shipped "
+                           "(also charged to exchange_bytes_on_wire)",
+    "coded_recovered_keys": "keys reconstructed from replica slots by "
+                            "coded recoveries (merged, never re-sorted)",
+    "coded_straggler_serves": "ranges served from the replica/parity plane "
+                              "ahead of their measured-straggler owner "
+                              "(no failure involved; parallel.coded)",
+    "hier_exchanges": "two-level (intra-host x DCN-leg) exchanges planned "
+                      "and dispatched (parallel.exchange hier schedule)",
+    "dcn_bytes_on_wire": "bytes the two-level exchange shipped over the "
+                         "inter-host DCN legs (also charged to "
+                         "exchange_bytes_on_wire)",
+    "intra_host_bytes_on_wire": "bytes the two-level exchange kept on the "
+                                "fast intra-host fabric (also charged to "
+                                "exchange_bytes_on_wire)",
+    "dcn_bytes_saved": "inter-host bytes the two-level schedule avoided vs "
+                       "the flat ring's cross-host transfers for the same "
+                       "measured histogram",
 }
 
 

@@ -704,3 +704,86 @@ def test_keep_on_device_rerun_drill_on_cuda(cuda):
     np.testing.assert_array_equal(h.to_host(), np.sort(x))
     assert h.valid and m.counters["device_handle_reruns"] == 1
     assert h.validate_on_device().checksum == _fnv_multiset(x)
+
+
+# -- radix, hier and the coded plane on the card -------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64, np.uint64, np.int16,
+                                   np.uint8, np.float32, np.float64])
+def test_radix_sort_on_cuda_matches_cpu(cuda, dtype):
+    """The plain PyTorch radix sort on the card gives its CPU bits, rows
+    batched, records stable."""
+    from dsort_tpu_torch.ops.radix import radix_sort, radix_sort_kv
+
+    rng = np.random.default_rng(50)
+    if np.dtype(dtype).kind == "f":
+        x = (rng.standard_normal((3, 20001)) * 1e3).astype(dtype)
+        x[0, :4] = [np.nan, -np.nan, -0.0, np.inf]
+    else:
+        x = _keys(rng, (3, 20001), dtype)
+    t = torch.from_numpy(x)
+    got = radix_sort(t.to(cuda)).cpu()
+    want = radix_sort(t)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    k = torch.from_numpy(rng.integers(0, 64, 30000).astype(np.int64))
+    v = torch.from_numpy(rng.integers(0, 256, (30000, 90), dtype=np.uint8))
+    gk, gv = radix_sort_kv(k.to(cuda), v.to(cuda))
+    perm = np.argsort(k.numpy(), kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), k.numpy()[perm])
+    np.testing.assert_array_equal(gv.cpu().numpy(), v.numpy()[perm])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_hier_sort_on_cuda(cuda, hosts):
+    """hier at 2^20 int32 on the card: numpy's bits and ring's per-shard
+    counts, the block kernels launched for the local sort and the merges."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    x = _keys(np.random.default_rng(51), 1 << 20, np.int32)
+    ss = SampleSort(VirtualMesh(8, cuda), JobConfig(exchange="hier", hier_hosts=hosts))
+    tb.reset_launch_counts()
+    m = Metrics()
+    np.testing.assert_array_equal(ss.sort(x, m), np.sort(x))
+    got = tb.launch_counts()
+    assert got["bitonic_tile_kernel"] and got["bitonic_tile_merge_kernel"], got
+    assert m.counters["hier_exchanges"] == 1
+    ring = SampleSort(VirtualMesh(8, cuda), JobConfig(exchange="ring"))
+    assert [len(r) for r in ss.sort_ranges(x)] == [len(r) for r in ring.sort_ranges(x)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red,mode", [(2, "replicate"), (2, "parity"), (3, "parity")])
+def test_coded_recovery_on_cuda(cuda, red, mode):
+    """A mid-ring loss at 2^20 int32 on the card: one attempt, the dead
+    range rebuilt from the plane copied to the host, numpy's bits."""
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    x = _keys(np.random.default_rng(52), 1 << 20, np.int32)
+    inj = FaultInjector()
+    sched = _drill(cuda, inj, exchange="ring", redundancy=red, redundancy_mode=mode)
+    np.testing.assert_array_equal(sched.sort(x), np.sort(x))
+    inj.fail_once(3, "ring")
+    m = Metrics(journal=EventLog())
+    np.testing.assert_array_equal(sched.sort(x, m), np.sort(x))
+    types = m.journal.types()
+    assert types.count("attempt_start") == 1 and m.counters["coded_recoveries"] == 1
+
+
+@pytest.mark.cuda
+def test_gf2mul_and_parity_fold_on_cuda(cuda):
+    from dsort_tpu_torch.parallel import exchange as ex
+
+    x = torch.arange(256, dtype=torch.uint8)
+    got = ex._gf2mul_u8(x.to(cuda))
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), ex._gf2mul_u8(x))
+    rows = [torch.randint(0, 256, (8, 4096), dtype=torch.uint8) for _ in range(8)]
+    for a, b in zip(ex._parity_fold([r.to(cuda) for r in rows], 2), ex._parity_fold(rows, 2)):
+        assert torch.equal(a.cpu(), b)

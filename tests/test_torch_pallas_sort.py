@@ -371,21 +371,21 @@ def test_sort_with_kernel_dispatch():
     for kernel in ("lax", "block", "bitonic", "pallas"):
         np.testing.assert_array_equal(ls.sort_with_kernel(x, kernel).numpy(), [-3, 0, 5, 7])
     assert ls.LOCAL_KERNELS == ("auto", "lax", "block", "bitonic", "pallas", "radix")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ls.sort_with_kernel(x, "radix")
+    np.testing.assert_array_equal(ls.sort_with_kernel(x, "radix").numpy(), [-3, 0, 5, 7])
     with pytest.raises(ValueError, match="unknown local kernel"):
         ls.sort_with_kernel(x, "quicksort")
-    for kernel in ("bitonic", "pallas"):  # auto never picks them
+    for kernel in ("bitonic", "pallas", "radix"):  # auto never picks them
         assert ls.resolve_kernel("auto", torch.int32, 1 << 20, "cpu") != kernel
 
 
 def test_job_config_accepts_the_new_kernels():
     for kw in (dict(local_kernel="pallas"), dict(local_kernel="bitonic"),
-               dict(merge_kernel="bitonic"), dict(local_kernel="pallas", merge_kernel="bitonic")):
+               dict(merge_kernel="bitonic"), dict(local_kernel="pallas", merge_kernel="bitonic"),
+               dict(local_kernel="radix")):
         job = JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(**kw)))
         assert all(getattr(job, k) == v for k, v in kw.items())
-    with pytest.raises(ConfigError, match="not yet ported"):
-        JobConfig(local_kernel="radix")
+    with pytest.raises(ConfigError, match="local_kernel"):
+        JobConfig(local_kernel="quicksort")
 
 
 @pytest.mark.parametrize("argv", [["--kernel", "pallas"], ["--kernel", "bitonic"],
@@ -399,5 +399,12 @@ def test_cli_run_kernel_flags(tmp_path, argv):
 
 
 def test_cli_refuses_radix(tmp_path):
+    # The radix kernel is ported: --kernel radix sorts; an unknown kernel is
+    # what the parser refuses.
     with pytest.raises(SystemExit):
-        cli.main(["run", str(tmp_path / "x"), "--device", "cpu", "--kernel", "radix"])
+        cli.main(["run", str(tmp_path / "x"), "--device", "cpu", "--kernel", "quicksort"])
+    x = np.random.default_rng(6).integers(-(2**31), 2**31, 3_000).astype(np.int32)
+    src, dst = tmp_path / "input.txt", tmp_path / "output.txt"
+    src.write_text("".join(f"{v}\n" for v in x.tolist()))
+    assert cli.main(["run", str(src), "-o", str(dst), "--device", "cpu", "--kernel", "radix"]) == 0
+    assert dst.read_bytes() == "".join(f"{v}\n" for v in np.sort(x).tolist()).encode()

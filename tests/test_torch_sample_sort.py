@@ -189,10 +189,17 @@ def test_job_config_from_dict_and_validation():
         JaxJobConfig(oversample=16, capacity_factor=2.0, max_capacity_retries=1)
     ))
     assert (job.oversample, job.capacity_factor, job.max_capacity_retries) == (16, 2.0, 1)
-    for bad in (dict(exchange="hier"), dict(local_kernel="radix"),
+    for bad in (dict(hier_hosts=-1), dict(redundancy=0), dict(redundancy_mode="raid"),
                 dict(merge_kernel="nope"), dict(exchange="nope"),
                 dict(oversample=0), dict(capacity_factor=0.5)):
         with pytest.raises(ConfigError):
             JobConfig(**bad)
-    with pytest.raises(ConfigError, match="not yet ported"):
-        JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(redundancy=2)))
+        with pytest.raises(Exception):  # the reference refuses the same values
+            JaxJobConfig(**bad)
+    # hier, radix and the coded plane are ported: from_dict carries them.
+    knobs = dict(exchange="hier", hier_hosts=4, local_kernel="radix", redundancy=2,
+                 redundancy_mode="parity")
+    job = JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(**knobs)))
+    assert {k: getattr(job, k) for k in knobs} == knobs
+    with pytest.raises(ConfigError, match="autotune.*not yet ported"):
+        JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(autotune=True)))
