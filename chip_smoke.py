@@ -121,7 +121,29 @@ Phases (any failure raises, so the exit code is non-zero):
    at 2^26 int32 and ``radix_sort`` / ``radix_sort_kv`` against
    ``torch.sort``; ``cli run --redundancy 2`` on phase 4's file (not the
    fused route), ``--exchange hier`` on it (the fused route) and on 2^21
-   lines (the scheduler, hier's plan journaled).
+   lines (the scheduler, hier's plan journaled);
+10. recovery and out-of-core (`out_of_core`), each dataset 8 times its
+   per-run or per-wave budget, spilled to a temporary directory: the
+   ``ExternalSort`` of phase 4's 2^26 int32 from a binary file in 8 runs
+   (the block kernels' launches 8 times ``block_sort``'s at 2^23), under
+   ``local_kernel="pallas"`` (8 S1 launches), 2^24 float32 with NaN/±0/±inf
+   in 4 runs, its resume after 3 run files are deleted and a reused
+   ``job_id`` on other data; ``ExternalWaveSort(VirtualMesh(8))`` of the
+   file in 8 waves under ``ring``, ``fused`` (8 R1 launches), ``hier`` (2
+   hosts) and coded replicate r = 2, its peak allocation under half of
+   phase 9's in-memory ``ring`` peak, the 2^24 zipf int64 in 8 waves, the
+   overlap on against off in turns; the wave drills (a loss in wave 4's
+   ring repaired on the host, the same under r = 2 from the plane, the
+   crash drill: a child ``cli external --mesh 8`` with
+   ``DSORT_WAVE_DIE_AFTER_WAVE=3`` exits 17 with 32 runs durable and the
+   re-run resumes them); ``ExternalTeraSort`` / ``ExternalWaveTeraSort`` /
+   ``cli terasort --external [--mesh 8]`` of phase 5's 2^23 records beside
+   the in-memory ``sort_kv``; ``SpmdScheduler(8)`` at 2^26 with and without
+   ``checkpoint_dir`` in turns, a loss at ``assemble`` (5 ranges restored,
+   about 3/8 of the keys re-sorted, the time to recover), the full restore
+   (zero launches), the task pool's re-run at 2^24 (8 shards restored,
+   zero launches) and ``cli run --checkpoint-dir --job-id`` (the scheduler,
+   then the restore).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -264,6 +286,11 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     return a.shape == b.shape and np.array_equal(
         a.view(f"u{a.dtype.itemsize}"), b.view(f"u{b.dtype.itemsize}")
     )
+
+
+def phases_ms(m, prefix: str) -> dict:
+    """The phases of ``m`` whose names start with ``prefix``, in ms."""
+    return {k: round(v * 1e3, 3) for k, v in m.phase_s.items() if k.startswith(prefix)}
 
 
 class Journal:
@@ -1549,6 +1576,408 @@ def exchange_plane(card, ss, x32, ref32, counts32, z, refz, tk, tv, ref_k, ref_v
         raise AssertionError(f"cli run --exchange hier: {plans}")
     log(f"main cli run --exchange hier --hier-hosts 4 2^21 lines: byte-identical, {wall:.1f} ms "
         f"wall, hier_exchange_plan hosts 4, launches {got}")
+    return ring_gb
+
+
+def out_of_core(card, ss, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, counts, launched,
+                keys_path, src, want_bytes, work, ring_gb) -> None:
+    """Phase 10: recovery and out-of-core on the card.  ``x32`` / ``z`` /
+    ``tk, tv`` are phase 4's 2^26 uniform int32, 2^24 zipf int64 and
+    phase 5's 2^23 TeraSort records (unique prefixes, so ``ref_k, ref_v``
+    is their order), ``ring_gb`` phase 9's peak allocation of the
+    in-memory ``ring`` sort at 2^26.  Every dataset is 8 times the per-run
+    or per-wave budget (the reference's out-of-core bench factor); the
+    spill lives in a temporary directory under ``work``, removed at the
+    end."""
+    import os
+    import shutil
+    import tempfile
+
+    from dsort_tpu_torch import cli
+    from dsort_tpu_torch.checkpoint import ShardCheckpoint
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.data import ingest
+    from dsort_tpu_torch.models.external_sort import ExternalSort, ExternalTeraSort
+    from dsort_tpu_torch.models.wave_sort import (
+        DIE_AFTER_WAVE_ENV,
+        ExternalWaveSort,
+        ExternalWaveTeraSort,
+    )
+    from dsort_tpu_torch.ops import block_sort as tb
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.scheduler import (
+        DeviceExecutor,
+        FaultInjector,
+        Scheduler,
+        SpmdScheduler,
+    )
+    from dsort_tpu_torch.scheduler.fault import WorkerFailure
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    t_phase = time.perf_counter()
+    dev = ss.mesh.device
+    n32, nz, nrec = len(x32), len(z), len(tk)
+    run32, runz, run_rec = n32 // 8, nz // 8, nrec // 8
+    spill = Path(tempfile.mkdtemp(prefix="ooc_", dir=work))
+    in32, out32 = spill / "in_int32.bin", spill / "out_int32.bin"
+    x32.tofile(in32)
+
+    def read_out(path, dtype):
+        return np.fromfile(path, dtype=dtype)
+
+    def peak_gb(fn):
+        """``fn()`` and its peak allocation over what was live before it
+        (earlier phases leave tensors allocated)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - live) / 2**30
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def drop(*job_ids):
+        """Remove finished stores: the spill stays near one job's size."""
+        for job_id in job_ids:
+            shutil.rmtree(spill / job_id, ignore_errors=True)
+
+    def expect(label, m, **want):
+        got = {k: m.counters.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"{label}: counters {got} != {want}")
+
+    try:
+        # -- 1. ExternalSort ---------------------------------------------------
+        row = torch.from_numpy(x32[:run32].copy()).to(dev)
+        reset()
+        tb.block_sort(row)
+        torch.cuda.synchronize()
+        per_run = {k: v for k, v in counts().items() if v}
+        reset()
+        ps.pallas_sort(row)
+        torch.cuda.synchronize()
+        s1_per_run = counts()["tile_sort_kernel"]
+        del row
+        es = ExternalSort(run_elems=run32, spill_dir=str(spill), job_id="ext32")
+        m = Metrics()
+        reset()
+        _, wall = timed(lambda: es.sort_binary_file(str(in32), str(out32), np.int32, m))
+        got = launched("ExternalSort int32 n=2^26", keys_path)
+        if got != {k: 8 * v for k, v in per_run.items()}:
+            raise AssertionError(f"ExternalSort launches {got} != 8 x block_sort's {per_run}")
+        if not same_bits(read_out(out32, np.int32), ref32):
+            raise AssertionError("ExternalSort int32 n=2^26: output differs from numpy")
+        expect("ExternalSort", m, runs_sorted=8, runs_resumed=0)
+        ext_wall = wall
+        log(f"ooc ExternalSort int32 n=2^26 run_elems=2^23 (8 runs) from a binary file: equal to "
+            f"numpy, {wall:.1f} ms wall ({n32 / wall / 1e3:.3f} Mkeys/s), phases "
+            f"{m.summary()['phases_ms']}, launches {got} = 8 x block_sort's at 2^23 {per_run} "
+            f"[{card}]")
+        esp = ExternalSort(run_elems=run32, spill_dir=str(spill), job_id="ext32p",
+                           local_kernel="pallas")
+        m = Metrics()
+        reset()
+        _, wall = timed(lambda: esp.sort_binary_file(str(in32), str(out32), np.int32, m))
+        got = launched("ExternalSort pallas", {"tile_sort_kernel"})
+        if got.get("tile_sort_kernel") != 8 * s1_per_run or s1_per_run != 1:
+            raise AssertionError(f"ExternalSort pallas: S1 launches {got} (per run {s1_per_run})")
+        if not same_bits(read_out(out32, np.int32), ref32):
+            raise AssertionError("ExternalSort pallas: output differs from numpy")
+        log(f"ooc ExternalSort int32 n=2^26 local_kernel=pallas: equal to numpy, {wall:.1f} ms "
+            f"wall, phases {m.summary()['phases_ms']}, launches {got} [{card}]")
+        drop("ext32p")
+        rng = np.random.default_rng(10)
+        f = (rng.standard_normal(nz) * 1e3).astype(np.float32)
+        specials = np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf, 1e-45, -1e-45],
+                            np.float32)
+        f[rng.choice(f.size, 4096, replace=False)] = np.resize(specials, 4096)
+        m = Metrics()
+        reset()
+        out, wall = timed(lambda: ExternalSort(run_elems=nz // 4, spill_dir=str(spill),
+                                               job_id="extf").sort(f, metrics=m))
+        got = launched("ExternalSort float32", keys_path)
+        if not same_bits(out, ordered_float_reference(f)):
+            raise AssertionError("ExternalSort float32: output differs from the float order")
+        expect("ExternalSort float32", m, runs_sorted=4)
+        log(f"ooc ExternalSort float32 with NaN/±0/±inf n=2^24 in 4 runs: the float order "
+            f"(ordered uints), {wall:.1f} ms wall, launches {got} [{card}]")
+        drop("extf")
+        ck = ShardCheckpoint(str(spill), "ext32")
+        for i in (1, 4, 6):
+            os.remove(ck._shard_path(i))
+        m = Metrics()
+        reset()
+        _, wall = timed(lambda: es.sort_binary_file(str(in32), str(out32), np.int32, m))
+        got = launched("ExternalSort resume", keys_path)
+        expect("ExternalSort resume", m, runs_resumed=5, runs_sorted=3)
+        if not same_bits(read_out(out32, np.int32), ref32):
+            raise AssertionError("ExternalSort resume: output differs from numpy")
+        log(f"ooc ExternalSort resume after 3 of 8 run files deleted: runs_resumed 5, "
+            f"runs_sorted 3, equal to numpy, {wall:.1f} ms wall against the full job's "
+            f"{ext_wall:.1f} ms, launches {got} [{card}]")
+        other = x32[: n32 // 4] ^ 1
+        m = Metrics()
+        out = es.sort(other, metrics=m)
+        expect("ExternalSort reused job_id", m, runs_resumed=0, runs_sorted=2)
+        if not same_bits(out, np.sort(other)) or ck.manifest()["total"] != len(other):
+            raise AssertionError("ExternalSort reused job_id: the store was not cleared")
+        log("ooc ExternalSort reused job_id on other data (a quarter of the keys): store cleared, "
+            "runs_resumed 0, runs_sorted 2, equal to numpy")
+        drop("ext32")
+
+        # -- 2. ExternalWaveSort(VirtualMesh(8)) --------------------------------
+        mesh8 = VirtualMesh(P)
+        waves = {
+            "ring": dict(exchange="ring"),
+            "fused": dict(exchange="fused"),
+            "hier hosts=2": dict(exchange="hier", job=JobConfig(hier_hosts=2)),
+            "coded replicate r=2": dict(redundancy=2),
+        }
+        wave_gb, wave_wall = {}, {}
+        for name, kw in waves.items():
+            ws = ExternalWaveSort(mesh8, wave_elems=run32, spill_dir=str(spill),
+                                  job_id=f"wave_{name.split()[0]}", resume=False, **kw)
+            m = Metrics(journal=EventLog())
+            reset()
+            t0 = time.perf_counter()
+            _, gb = peak_gb(lambda: ws.sort_binary_file(str(in32), str(out32), np.int32, m))
+            wall = (time.perf_counter() - t0) * 1e3
+            need = keys_path | ({"ring_exchange_kernel"} if name == "fused" else set())
+            got = launched(f"ExternalWaveSort {name}", need)
+            if name == "fused" and got["ring_exchange_kernel"] != 8:
+                raise AssertionError(f"fused waves: {got['ring_exchange_kernel']} R1 launches")
+            if not same_bits(read_out(out32, np.int32), ref32):
+                raise AssertionError(f"ExternalWaveSort {name}: output differs from numpy")
+            expect(f"ExternalWaveSort {name}", m, waves_sorted=8, runs_sorted=64,
+                   hier_exchanges=8 if name.startswith("hier") else 0)
+            wave_gb[name], wave_wall[name] = gb, wall
+            drop(ws.job_id)
+            log(f"ooc ExternalWaveSort(VirtualMesh(8)) {name} int32 n=2^26 wave_elems=2^23 (8 "
+                f"waves): equal to numpy, {wall:.1f} ms wall ({n32 / wall / 1e3:.3f} Mkeys/s), "
+                f"peak {gb:.3f} GiB allocated over the live, phases {m.summary()['phases_ms']}, launches "
+                f"{got} [{card}]")
+        out, mem_gb = peak_gb(lambda: ss.sort(x32, exchange="ring"))
+        if not same_bits(out, ref32) or not wave_gb["ring"] < mem_gb / 2:
+            raise AssertionError(f"wave ring peak {wave_gb['ring']:.3f} GiB is not under half of "
+                                 f"the in-memory ring's {mem_gb:.3f} GiB")
+        log(f"ooc peak allocated over the {torch.cuda.memory_allocated() / 2**30:.3f} GiB live "
+            f"before each job: wave ring {wave_gb['ring']:.3f} GiB against the in-memory "
+            f"ring's {mem_gb:.3f} GiB at 2^26 (ratio {wave_gb['ring'] / mem_gb:.3f}; phase "
+            f"9's absolute ring peak {ring_gb:.3f} GiB) [{card}]")
+        wz = ExternalWaveSort(mesh8, wave_elems=runz, spill_dir=str(spill), job_id="wave_zipf")
+        m = Metrics()
+        reset()
+        out, wall = timed(lambda: wz.sort(z, metrics=m))
+        got = launched("ExternalWaveSort zipf int64", keys_path)
+        if not same_bits(out, refz):
+            raise AssertionError("ExternalWaveSort zipf int64: output differs from numpy")
+        expect("ExternalWaveSort zipf", m, waves_sorted=8)
+        log(f"ooc ExternalWaveSort zipf(1.3) int64 n=2^24 wave_elems=2^21: equal to numpy, "
+            f"{wall:.1f} ms wall, launches {got} [{card}]")
+        drop("wave_zipf")
+        turns = []
+        for overlap in (True, False, False, True):
+            ws = ExternalWaveSort(mesh8, wave_elems=run32, spill_dir=str(spill),
+                                  job_id="wave_ab", resume=False, overlap=overlap)
+            turns.append((overlap, timed(lambda: ws.sort_binary_file(
+                str(in32), str(out32), np.int32))[1]))
+            if not same_bits(read_out(out32, np.int32), ref32):
+                raise AssertionError(f"overlap={overlap}: output differs from numpy")
+        drop("wave_ab")
+        on = float(np.median([t for o, t in turns if o]))
+        off = float(np.median([t for o, t in turns if not o]))
+        log(f"ooc ExternalWaveSort ring overlap on / off, in turns (on off off on): "
+            f"{on:.1f} / {off:.1f} ms median of 2 (ratio off/on {off / on:.3f}; runs "
+            f"{[(o, round(t, 1)) for o, t in turns]}) [{card}]")
+
+        # -- 3. wave drills ----------------------------------------------------
+        def wave_drill(label, hook_at, coded):
+            ws = ExternalWaveSort(mesh8, wave_elems=run32, spill_dir=str(spill),
+                                  job_id=f"drill_{coded}", resume=False,
+                                  redundancy=2 if coded else 1)
+            calls = {"n": 0}
+
+            def hook():
+                calls["n"] += 1
+                if calls["n"] == hook_at:
+                    raise WorkerFailure(3 if coded else 5, "ring")
+
+            ws.fault_hook = hook
+            m = Metrics(journal=EventLog())
+            reset()
+            _, wall = timed(lambda: ws.sort_binary_file(str(in32), str(out32), np.int32, m))
+            got = launched(label, keys_path)
+            if not same_bits(read_out(out32, np.int32), ref32):
+                raise AssertionError(f"{label}: output differs from numpy")
+            drop(ws.job_id)
+            return m, wall, got
+
+        m, wall, got = wave_drill("wave drill: a loss in wave 4's ring", 5, False)
+        expect("wave drill", m, wave_runs_resorted=8, waves_sorted=7, coded_recoveries=0)
+        log(f"ooc wave drill, a loss in wave 4's ring: wave_runs_resorted 8 (host re-sort), "
+            f"equal to numpy, {wall:.1f} ms wall against {wave_wall['ring']:.1f} healthy, "
+            f"host repair split (ms) {phases_ms(m, 'wave_repair')}, launches {got} [{card}]")
+        m, wall, got = wave_drill("wave drill coded r=2", 5, True)
+        rec = m.journal.types().count("coded_recover")
+        expect("coded wave drill", m, wave_runs_resorted=0, coded_recoveries=1, waves_sorted=8)
+        if rec != 1:
+            raise AssertionError(f"coded wave drill: {rec} coded_recover events")
+        log(f"ooc wave drill coded replicate r=2, a loss in wave 4's ring: one coded_recover, "
+            f"wave_runs_resorted absent, equal to numpy, {wall:.1f} ms wall against "
+            f"{wave_wall['coded replicate r=2']:.1f} healthy [{card}]")
+        crash_out = spill / "out_crash.bin"
+        argv = ["external", str(in32), "-o", str(crash_out), "--mesh", "8", "--wave-elems",
+                str(run32), "--spill-dir", str(spill), "--job-id", "crash"]
+        env = {**os.environ, DIE_AFTER_WAVE_ENV: "3"}
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "dsort_tpu_torch.cli", *argv], env=env,
+                           cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        runs = ShardCheckpoint(str(spill), "crash").completed_wave_runs()
+        if r.returncode != 17 or len(runs) != 32:
+            raise AssertionError(f"crash drill: exit {r.returncode}, {len(runs)} wave runs\n"
+                                 f"{r.stderr[-2000:]}")
+        jpath = spill / "crash.jsonl"
+        reset()
+        t0 = time.perf_counter()
+        if cli.main(argv + ["--journal", str(jpath)]) != 0:
+            raise AssertionError("crash drill re-run failed")
+        wall = (time.perf_counter() - t0) * 1e3
+        got = launched("crash drill re-run", keys_path)
+        done = [x for x in EventLog.read_jsonl(str(jpath)) if x["type"] == "job_done"][-1]
+        if (done["counters"].get("runs_resumed") != 32 or done["counters"].get("runs_sorted") != 32
+                or not same_bits(read_out(crash_out, np.int32), ref32)):
+            raise AssertionError(f"crash drill re-run: {done['counters']}")
+        log(f"ooc crash drill: child exit 17 after wave 3 ({child_s:.1f} s with its start), 32 "
+            f"wave runs durable; re-run runs_resumed 32, runs_sorted 32, equal to numpy, "
+            f"{wall:.1f} ms wall against the full job's {wave_wall['ring']:.1f} ms, launches "
+            f"{got} [{card}]")
+        drop("crash")
+        crash_out.unlink()
+
+        # -- 4. records ----------------------------------------------------------
+        rec_in, rec_ref = spill / "tera_in.bin", spill / "tera_ref.bin"
+        ingest.write_terasort_file(rec_in, tk, tv)
+        ingest.write_terasort_file(rec_ref, ref_k, ref_v)
+        want_rec = rec_ref.read_bytes()
+        _, mem_ms = timed(lambda: ss.sort_kv(tk, tv, secondary=ingest.terasort_secondary(tv)))
+        rec_jobs = {
+            "ExternalTeraSort run_recs=2^20": lambda out: ExternalTeraSort(
+                run_recs=run_rec, spill_dir=str(spill), job_id="tera",
+                resume=False).sort_file(str(rec_in), str(out)),
+            "ExternalWaveTeraSort(VirtualMesh(8)) wave_recs=2^20": lambda out: (
+                ExternalWaveTeraSort(mesh8, wave_recs=run_rec, spill_dir=str(spill),
+                                     job_id="tera_wave", resume=False).sort_file(
+                    str(rec_in), str(out))),
+            "cli terasort --external": lambda out: cli.main(
+                ["terasort", str(rec_in), "-o", str(out), "--external", "--run-recs",
+                 str(run_rec), "--spill-dir", str(spill), "--no-resume"]),
+            "cli terasort --external --mesh 8": lambda out: cli.main(
+                ["terasort", str(rec_in), "-o", str(out), "--external", "--mesh", "8",
+                 "--run-recs", str(run_rec), "--spill-dir", str(spill), "--no-resume"]),
+        }
+        for name, job in rec_jobs.items():
+            out = spill / "tera_out.bin"
+            _, wall = timed(lambda: job(out))
+            if out.read_bytes() != want_rec:
+                raise AssertionError(f"{name}: records differ from the lexsort order")
+            log(f"ooc {name} 2^23 TeraSort records: byte-identical to the key order, "
+                f"{wall:.1f} ms wall ({nrec / wall / 1e3:.3f} Mrec/s) beside the in-memory "
+                f"sort_kv's {mem_ms:.1f} ms ({nrec / mem_ms / 1e3:.3f} Mrec/s) [{card}]")
+            drop("tera", "tera_wave", "tera_external")
+        for path in (rec_in, rec_ref, spill / "tera_out.bin"):
+            path.unlink()
+
+        # -- 5. resumable jobs ---------------------------------------------------
+        root = spill / "ckpt"
+        plain = SpmdScheduler(8, dev, JobConfig(settle_delay_s=0.01))
+        ckd = SpmdScheduler(8, dev, JobConfig(settle_delay_s=0.01, checkpoint_dir=str(root)))
+        if not same_bits(plain.sort(x32), ref32):
+            raise AssertionError("SpmdScheduler warm-up differs from numpy")
+        turns = []
+        for i, ck_on in enumerate((False, True, True, False)):
+            sched = ckd if ck_on else plain
+            out, wall = timed(lambda: sched.sort(x32, job_id=f"turn{i}"))
+            if not same_bits(out, ref32):
+                raise AssertionError("SpmdScheduler turns: output differs from numpy")
+            turns.append((ck_on, wall))
+            shutil.rmtree(root / f"turn{i}", ignore_errors=True)
+        healthy = {k: float(np.median([t for c, t in turns if c == k])) for k in (False, True)}
+        log(f"ooc SpmdScheduler(8) int32 n=2^26 without / with checkpoint_dir, in turns: "
+            f"{healthy[False]:.1f} / {healthy[True]:.1f} ms median of 2 (the cost of persisting "
+            f"{healthy[True] - healthy[False]:.1f} ms; runs {[(c, round(t, 1)) for c, t in turns]}) "
+            f"[{card}]")
+        inj = FaultInjector()
+        drill = SpmdScheduler(8, dev, JobConfig(settle_delay_s=0.01, checkpoint_dir=str(root)),
+                              inj)
+        inj.fail_once(5, "assemble")
+        m = Metrics(journal=EventLog())
+        reset()
+        out, wall = timed(lambda: drill.sort(x32, m, job_id="assemble"))
+        got = launched("SpmdScheduler loss at assemble", keys_path)
+        resort = m.counters.get("shuffle_resort_keys", 0)
+        if (not same_bits(out, ref32) or m.counters.get("shuffle_ranges_restored") != 5
+                or not 0.3 * n32 < resort < 0.45 * n32 or m.counters.get("mesh_reforms") != 1):
+            raise AssertionError(f"assemble drill: {dict(m.counters)}")
+        log(f"ooc SpmdScheduler loss at assemble (range 5): shuffle_ranges_restored 5, "
+            f"shuffle_resort_keys {resort} ({resort / n32:.4f} of N), equal to numpy, "
+            f"{wall:.1f} ms wall, time to recover {wall - healthy[True]:.1f} ms over the "
+            f"checkpointed healthy median, {wall / healthy[False]:.2f}x a plain re-run "
+            f"(the uncheckpointed job, {healthy[False]:.1f} ms), resume split (ms) "
+            f"{phases_ms(m, 'resume_')}, launches {got} [{card}]")
+        m = Metrics()
+        reset()
+        out, wall = timed(lambda: drill.sort(x32, m, job_id="assemble"))
+        if (not same_bits(out, ref32) or m.counters.get("shuffle_phase_restores") != 1
+                or any(counts().values())):
+            raise AssertionError(f"full restore: {dict(m.counters)} launches {counts()}")
+        log(f"ooc SpmdScheduler re-run of the same job_id: shuffle_phase_restores 1, zero kernel "
+            f"launches, equal to numpy, {wall:.1f} ms wall [{card}]")
+        pool = Scheduler(DeviceExecutor(8, dev), JobConfig(settle_delay_s=0.01,
+                                                           checkpoint_dir=str(root)))
+        xp = x32[:nz]
+        refp = np.sort(xp)
+        _, first = timed(lambda: pool.run_job(xp, job_id="pool"))
+        m = Metrics()
+        reset()
+        out, wall = timed(lambda: pool.run_job(xp, m, job_id="pool"))
+        if (not same_bits(out, refp) or m.counters.get("shards_restored") != 8
+                or any(counts().values())):
+            raise AssertionError(f"task pool re-run: {dict(m.counters)} launches {counts()}")
+        log(f"ooc task pool 2^24 int32 re-run with a job_id: shards_restored 8, zero kernel "
+            f"launches, {wall:.1f} ms wall against the first run's {first:.1f} ms [{card}]")
+        dst, jpath = spill / "cli_out.txt", spill / "cli_ck.jsonl"
+        argv = ["run", str(src), "-o", str(dst), "--checkpoint-dir", str(root), "--job-id",
+                "clijob", "--journal", str(jpath)]
+        reset()
+        if cli.main(argv) != 0:
+            raise AssertionError("cli run --checkpoint-dir failed")
+        got = launched("cli run --checkpoint-dir", keys_path)
+        recs = EventLog.read_jsonl(str(jpath))
+        if (dst.read_bytes() != want_bytes or recs[0]["mode"] != "spmd"
+                or "fused_small_jobs" in recs[-2]["counters"]):
+            raise AssertionError(f"cli run --checkpoint-dir: {recs[0]} {recs[-2]}")
+        reset()
+        if cli.main(argv) != 0:
+            raise AssertionError("cli run --checkpoint-dir re-run failed")
+        recs = EventLog.read_jsonl(str(jpath))
+        if (dst.read_bytes() != want_bytes
+                or recs[-2]["counters"].get("shuffle_phase_restores") != 1):
+            raise AssertionError(f"cli run --checkpoint-dir re-run: {recs[-2]}")
+        log(f"main cli run --checkpoint-dir --job-id 10^6 lines: byte-identical through "
+            f"SpmdScheduler (not the fused route), launches {got}; the re-run restored "
+            f"(shuffle_phase_restores 1, launches {counts()})")
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    log(f"phase 10 out_of_core: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
 def main() -> int:
@@ -2426,8 +2855,13 @@ def main() -> int:
                     work, cli_wall_ms)
 
     # 9. hier, the coded plane, radix -----------------------------------------
-    exchange_plane(card, ss, x32, ref32, counts32, z, refz, tk, tv, ref_k, ref_v, hist32,
-                   reset, counts, launched, keys_path, kv_merge, src, want_bytes, work)
+    ring_gb = exchange_plane(card, ss, x32, ref32, counts32, z, refz, tk, tv, ref_k, ref_v,
+                             hist32, reset, counts, launched, keys_path, kv_merge, src,
+                             want_bytes, work)
+
+    # 10. recovery and out-of-core ----------------------------------------------
+    out_of_core(card, ss, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, counts, launched,
+                keys_path, src, want_bytes, work, ring_gb)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,terasort,validate,gen} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,terasort,external,validate,gen} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -26,14 +26,32 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   spmd`` only) sorts through `SpmdScheduler` at every size with
   ``keep_on_device=True``, validates the handle on the device (order, and
   its checksum against the input's host `_multiset`), then copies it to
-  the host for the output file; exit 1 when either check fails;
+  the host for the output file; exit 1 when either check fails.
+  ``--checkpoint-dir DIR [--job-id ID]`` makes the job resumable
+  (`JobConfig.checkpoint_dir`; the id defaults to the input's sanitised
+  basename, `_job_id_for`): a checkpointed ``spmd`` job skips the fused
+  route and goes through `SpmdScheduler`, whose re-run restores what is on
+  disk; ``taskpool`` persists its shards; ``--mode local`` and
+  ``--device-resident`` warn and ignore the flags, as the reference does;
 - ``terasort INPUT -o OUTPUT``: 100-byte TeraSort records
   through `SampleSort.sort_kv` (the reference's ``cmd_terasort`` does not
   use the scheduler either), ordered by the full 10-byte key (8-byte
   prefix, then key bytes 8-9 as the secondary key — which keeps the
   ``alltoall`` exchange and runs uncoded, both warned); its keys are
   always the uint64 prefix, so it takes no ``--dtype``, as in the
-  reference.
+  reference.  ``--external`` sorts out-of-core: `ExternalTeraSort`
+  (``--run-recs`` records a spilled run), or with ``--mesh N``
+  `ExternalWaveTeraSort` over a ``VirtualMesh(N)`` (``--run-recs`` records
+  a wave); ``--spill-dir``, ``--job-id`` and ``--no-resume`` name and reset
+  the run store, ``--journal`` writes the job's events;
+- ``external INPUT -o OUTPUT [--dtype D] [--mesh N]``: out-of-core sort of
+  a raw binary key file: `ExternalSort` (``--run-elems`` keys a run,
+  ``--kernel``), or with ``--mesh N`` the wave pipeline `ExternalWaveSort`
+  over a ``VirtualMesh(N)`` (``--wave-elems``, ``--no-overlap``,
+  ``--exchange ring|fused|hier``, ``--hier-hosts``, ``--redundancy``,
+  ``--redundancy-mode``; the last two and ``--exchange`` warn without
+  ``--mesh``, as the reference's do); resumable at run or (wave, run)
+  granularity under ``--spill-dir`` / ``--job-id``.
 
 Both take ``--kernel`` (`JobConfig.local_kernel`, ``radix`` included),
 ``--merge-kernel``, ``--exchange`` (``hier`` included), ``--hier-hosts``,
@@ -53,6 +71,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import sys
 import threading
 import time
@@ -62,6 +82,7 @@ from dsort_tpu_torch.config import (
     _LOCAL_KERNELS,
     _MERGE_KERNELS,
     _REDUNDANCY_MODES,
+    ExternalConfig,
     JobConfig,
 )
 from dsort_tpu_torch.utils.logging import get_logger
@@ -130,10 +151,51 @@ def _parser() -> argparse.ArgumentParser:
                      help="keep the sorted keys on the device and validate them there "
                           "(order + multiset checksum); the output file write is the "
                           "only device-to-host copy of keys")
-    _common(
-        sub.add_parser("terasort", help="sort a binary 100-byte-record file"),
-        "terasort_out.bin",
-    )
+    run.add_argument("--checkpoint-dir",
+                     help="persist per-shard/range progress here; a re-run of the same "
+                          "input resumes instead of re-sorting")
+    run.add_argument("--job-id", help="checkpoint namespace (default: input basename)")
+    tera = sub.add_parser("terasort", help="sort a binary 100-byte-record file")
+    _common(tera, "terasort_out.bin")
+    tera.add_argument("--external", action="store_true",
+                      help="out-of-core: spill sorted record runs, then merge them")
+    tera.add_argument("--mesh", type=int,
+                      help="external mode: run record waves over this many virtual "
+                           "workers (the wave pipeline)")
+    tera.add_argument("--run-recs", type=int, default=1 << 20,
+                      help="records per spilled run / per wave (external mode)")
+    _store_flags(tera, "tera_external")
+    ext = sub.add_parser("external", help="out-of-core sort of a raw binary key file")
+    ext.add_argument("input")
+    ext.add_argument("-o", "--output", required=True)
+    ext.add_argument("--dtype", default="int32")
+    ext.add_argument("--kernel", choices=_LOCAL_KERNELS, help="local sort kernel")
+    ext.add_argument("--run-elems", type=int, default=None,
+                     help="keys per spilled run, single-device mode (default %d)"
+                          % ExternalConfig.run_elems)
+    ext.add_argument("--mesh", type=int,
+                     help="sort in waves over this many virtual workers (the wave "
+                          "pipeline)")
+    ext.add_argument("--wave-elems", type=int, default=None,
+                     help="keys per wave, the per-wave device budget (default %d)"
+                          % ExternalConfig.wave_elems)
+    ext.add_argument("--no-overlap", action="store_true",
+                     help="disable the wave pipeline's spill/exchange overlap (the A/B "
+                          "baseline)")
+    ext.add_argument("--exchange", choices=["ring", "fused", "hier"],
+                     help="per-wave exchange schedule (wave mode; default ring; fused = "
+                          "one exchange kernel launch a wave; hier = the two-level "
+                          "schedule)")
+    ext.add_argument("--hier-hosts", type=int,
+                     help="host grouping for --exchange hier (default 0 = auto)")
+    ext.add_argument("--redundancy", type=int,
+                     help="coded redundancy r for each wave's exchange (default 1 = "
+                          "off): a worker lost mid-wave repairs from the plane instead "
+                          "of a host re-sort")
+    ext.add_argument("--redundancy-mode", choices=_REDUNDANCY_MODES,
+                     help="plane mode of coded waves: full copies or parity slots")
+    ext.add_argument("--device", default=None, help="cuda (default) or cpu")
+    _store_flags(ext, "external")
     gen = sub.add_parser("gen", help="generate synthetic input files")
     gen.add_argument("n", type=int)
     gen.add_argument("-o", "--output", required=True)
@@ -153,6 +215,33 @@ def _parser() -> argparse.ArgumentParser:
                      help="treat files as raw binary key arrays (streamed)")
     val.add_argument("--dtype", default="int32")
     return ap
+
+
+def _store_flags(p: argparse.ArgumentParser, job_id: str) -> None:
+    """The run store and journal flags of the out-of-core subcommands."""
+    p.add_argument("--spill-dir", help="where spilled runs live (default: a temp dir)")
+    p.add_argument("--job-id", default=job_id)
+    p.add_argument("--no-resume", action="store_true",
+                   help="discard checkpointed runs and start fresh")
+    p.add_argument("--journal", default=None,
+                   help="write the job's structured event journal (JSONL) here")
+
+
+def _job_id_for(path: str, explicit: str | None) -> str:
+    """Stable checkpoint job id for a CLI input file: the sanitised basename
+    by default, so a re-run of ``run FILE`` resumes FILE's own checkpoints
+    (the schedulers' fingerprint guard clears them if FILE changed).  An
+    explicit id is validated, never rewritten: an id like ``..`` would
+    escape the checkpoint root."""
+    if explicit:
+        if re.fullmatch(r"[A-Za-z0-9._-]+", explicit) and explicit.strip("."):
+            return explicit
+        raise SystemExit(
+            f"invalid --job-id {explicit!r}: use letters, digits, '.', '_', '-' (and "
+            "not only dots)"
+        )
+    jid = re.sub(r"[^A-Za-z0-9._-]", "_", os.path.basename(str(path)))
+    return jid if jid.strip(".") else "job"
 
 
 def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
@@ -181,11 +270,15 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
             return not ts or time.monotonic() - ts > FUSED_COLD_RETRY_S
 
         def sorter(data, metrics, job_id=None):
-            # A coded job (redundancy > 1) must reach the exchange plane:
-            # the fused route has no replica plane, and dropping an asked-for
-            # availability posture would be worse than the extra dispatches.
+            # A checkpointed job (checkpoint_dir and a job_id) goes through
+            # the scheduler at any size: resumability wins over dispatch
+            # count.  A coded job (redundancy > 1) must reach the exchange
+            # plane: the fused route has no replica plane, and dropping an
+            # asked-for availability posture would be worse than the extra
+            # dispatches.
             if (
                 len(data) < FUSED_SMALL_JOB_MAX
+                and not (job.checkpoint_dir and job_id)
                 and job.redundancy <= 1
                 and fused_path_open()
             ):
@@ -257,6 +350,12 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
         from dsort_tpu_torch.models.pipelines import fused_sort_small
 
         dev = resolve_device(device)
+        if job.checkpoint_dir:
+            log.warning(
+                "--mode local runs one fused device program and does not checkpoint; "
+                "--checkpoint-dir/--job-id are ignored (use spmd or taskpool mode for "
+                "resumable jobs)"
+            )
 
         def local_sorter(data, metrics, job_id=None):
             # No scheduler journals this mode's job boundaries: do it here.
@@ -302,12 +401,18 @@ def _run(args, job: JobConfig) -> int:
     if args.device_resident:
         if args.mode != "spmd":
             raise SystemExit("--device-resident requires --mode spmd")
+        if job.checkpoint_dir:
+            log.warning(
+                "--device-resident does not checkpoint: --checkpoint-dir/--job-id are "
+                "ignored; a failed job re-runs from the input"
+            )
         sorter = _make_device_sorter(job, args.workers, args.device)
     else:
         host_sorter = _make_sorter(job, args.mode, args.workers, args.device)
+        job_id = _job_id_for(args.input, args.job_id) if job.checkpoint_dir else None
 
         def sorter(data, metrics):
-            out = host_sorter(data, metrics)
+            out = host_sorter(data, metrics, job_id=job_id)
             metrics.event("result_fetch", n_keys=len(out))
             return out, True
 
@@ -401,6 +506,103 @@ def _validate(args) -> int:
     return 0 if ok else 1
 
 
+def _journaled(args, run) -> int:
+    """``run(metrics)`` with the job's journal written to ``args.journal``
+    once it ends, also when it failed; logs the wall time and phases."""
+    from dsort_tpu_torch.utils.events import EventLog
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    journal = EventLog() if args.journal else None
+    metrics = Metrics(journal=journal)
+    t0 = time.perf_counter()
+    try:
+        run(metrics)
+    finally:
+        if journal is not None:
+            journal.flush_jsonl(args.journal)
+    log.info(
+        "%s %s -> %s in %.1f ms | %s | phases: %s", args.cmd, args.input, args.output,
+        (time.perf_counter() - t0) * 1e3, dict(metrics.counters),
+        metrics.summary()["phases_ms"],
+    )
+    return 0
+
+
+def _external(args) -> int:
+    """``external``: `ExternalSort`, or `ExternalWaveSort` with ``--mesh``."""
+    import numpy as np
+
+    ext = ExternalConfig(
+        run_elems=args.run_elems if args.run_elems is not None else ExternalConfig.run_elems,
+        wave_elems=args.wave_elems if args.wave_elems is not None else ExternalConfig.wave_elems,
+        mesh=args.mesh,
+    )
+    if ext.mesh:
+        from dsort_tpu_torch.models.wave_sort import ExternalWaveSort
+        from dsort_tpu_torch.parallel.mesh import VirtualMesh
+
+        job_kw = {}
+        if args.kernel:
+            job_kw["local_kernel"] = args.kernel
+        if args.hier_hosts:
+            job_kw["hier_hosts"] = args.hier_hosts
+        s = ExternalWaveSort(
+            VirtualMesh(ext.mesh, args.device), wave_elems=ext.wave_elems,
+            spill_dir=args.spill_dir, job_id=args.job_id,
+            job=JobConfig(**job_kw) if job_kw else None, resume=not args.no_resume,
+            overlap=not args.no_overlap, exchange=args.exchange,
+            redundancy=args.redundancy, redundancy_mode=args.redundancy_mode,
+        )
+    else:
+        from dsort_tpu_torch.models.external_sort import ExternalSort
+
+        if args.exchange:
+            log.warning(
+                "--exchange has no effect without --mesh: the single-device external "
+                "sort has no exchange; add --mesh N to run the wave pipeline"
+            )
+        if args.redundancy and args.redundancy > 1:
+            log.warning(
+                "--redundancy has no effect without --mesh: the single-device external "
+                "sort has no replica plane; add --mesh N to run coded waves"
+            )
+        s = ExternalSort(
+            run_elems=ext.run_elems, spill_dir=args.spill_dir, job_id=args.job_id,
+            local_kernel=args.kernel or "auto", resume=not args.no_resume,
+            device=args.device,
+        )
+    return _journaled(args, lambda m: s.sort_binary_file(
+        args.input, args.output, dtype=np.dtype(args.dtype), metrics=m))
+
+
+def _terasort_external(args, job: JobConfig) -> int:
+    """``terasort --external``: `ExternalTeraSort`, or `ExternalWaveTeraSort`
+    with ``--mesh`` (its exchange is on the host, so ``--exchange`` is
+    recorded and warned, as in the reference)."""
+    if args.mesh:
+        from dsort_tpu_torch.models.wave_sort import ExternalWaveTeraSort
+        from dsort_tpu_torch.parallel.mesh import VirtualMesh
+
+        s = ExternalWaveTeraSort(
+            VirtualMesh(args.mesh, args.device), wave_recs=args.run_recs,
+            spill_dir=args.spill_dir, job_id=args.job_id, resume=not args.no_resume,
+            job=job, exchange=args.exchange,
+        )
+    else:
+        from dsort_tpu_torch.models.external_sort import ExternalTeraSort
+
+        if args.exchange:
+            log.warning(
+                "--exchange has no effect without --mesh: the single-device external "
+                "record sort has no exchange; add --mesh N to run record waves"
+            )
+        s = ExternalTeraSort(
+            run_recs=args.run_recs, spill_dir=args.spill_dir, job_id=args.job_id,
+            resume=not args.no_resume, device=args.device,
+        )
+    return _journaled(args, lambda m: s.sort_file(args.input, args.output, metrics=m))
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd == "gen":
@@ -409,10 +611,16 @@ def main(argv=None) -> int:
         return _validate(args)
     knobs = {"exchange": args.exchange, "hier_hosts": args.hier_hosts,
              "redundancy": args.redundancy, "redundancy_mode": args.redundancy_mode}
+    if args.cmd == "external":
+        return _external(args)
+    if args.cmd == "run" and args.checkpoint_dir:
+        knobs["checkpoint_dir"] = args.checkpoint_dir
     job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel,
                     **{k: v for k, v in knobs.items() if v})
     if args.cmd == "run":
         return _run(args, job)
+    if args.external:
+        return _terasort_external(args, job)
     from dsort_tpu_torch.data import ingest
     from dsort_tpu_torch.parallel.mesh import VirtualMesh
     from dsort_tpu_torch.parallel.sample_sort import SampleSort

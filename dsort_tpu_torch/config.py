@@ -4,7 +4,8 @@ scheduler read.
 Counterpart of ``dsort_tpu/config.py``'s ``JobConfig``, cut to what the
 ported path reads.  `JobConfig.from_dict` refuses the reference's settings
 this package has not ported yet with a clear "not yet ported"
-`ConfigError` instead of running something else.
+`ConfigError` instead of running something else.  `ExternalConfig` holds
+the out-of-core knobs of ``cli external`` / ``cli terasort --external``.
 """
 
 from __future__ import annotations
@@ -65,6 +66,12 @@ class JobConfig:
       recover by a local merge of a survivor's slots instead of a re-run;
     - ``redundancy_mode``: ``replicate`` (r - 1 full bucket copies) or
       ``parity`` (XOR at r = 2, GF(256) P+Q at r >= 3);
+    - ``checkpoint_dir``: where resumable jobs persist their progress
+      (`checkpoint.ShardCheckpoint`): with a ``job_id``, `scheduler.
+      SpmdScheduler.sort` keeps its local-sort shards and shuffle ranges
+      there and `scheduler.Scheduler.run_job` its sorted shards, and a
+      re-run of the same job restores what is on disk instead of sorting
+      it again; None (the default) persists nothing;
     - the fault plane (`scheduler.SpmdScheduler`, the fused route's
       bounded wait in ``cli run``), with the reference's
       defaults: ``settle_delay_s`` between a failure and the re-run;
@@ -95,6 +102,7 @@ class JobConfig:
     max_transient_retries: int = 2
     exec_allowance_floor_s: float = 30.0
     exec_allowance_keys_per_s: float = 1e6
+    checkpoint_dir: str | None = None
 
     def __post_init__(self) -> None:
         _check_choice("local_kernel", self.local_kernel, _LOCAL_KERNELS)
@@ -146,23 +154,16 @@ class JobConfig:
         ``max_capacity_retries``, ``settle_delay_s``,
         ``heartbeat_timeout_s``, ``compile_grace_s``,
         ``max_transient_retries``, ``exec_allowance_floor_s``,
-        ``exec_allowance_keys_per_s``.
+        ``exec_allowance_keys_per_s``, ``checkpoint_dir``.
 
         Ignored (not read by the ported path yet): ``key_dtype`` (the input
         array's dtype decides), ``payload_bytes`` (the payload array's row
         decides), ``max_reassign_attempts`` (the task-pool scheduler's), ``tenant``,
         ``flight_recorder_dir``, ``flight_ring_size``, ``explicit``.
 
-        Refused, as not yet ported (they would change the reference's
-        schedule or guarantees): ``autotune`` (the planner) and a
-        ``checkpoint_dir`` (resumable jobs: a user who asked for them must
-        not get a silent non-resumable run).
+        Refused, as not yet ported (it would change the reference's
+        schedule): ``autotune`` (the planner).
         """
-        if d.get("checkpoint_dir") is not None:
-            raise ConfigError(
-                "checkpoint_dir (resumable jobs) is not yet ported to "
-                "dsort_tpu_torch"
-            )
         if d.get("autotune", False):
             raise ConfigError(
                 "autotune (the exchange planner) is not yet ported to "
@@ -170,3 +171,27 @@ class JobConfig:
             )
         names = [f.name for f in dataclasses.fields(cls)]
         return cls(**{k: d[k] for k in names if k in d})
+
+
+@dataclasses.dataclass(frozen=True)
+class ExternalConfig:
+    """Out-of-core sort knobs (``cli external`` / ``cli terasort
+    --external``), with the reference's defaults and checks.
+
+    ``run_elems`` sizes the single-device spill runs
+    (`models.external_sort`); ``wave_elems`` sizes the per-wave device
+    budget of the wave pipeline (`models.wave_sort`); ``mesh`` is the wave
+    pipeline's worker count (None = the single-device external sort).
+    """
+
+    run_elems: int = 1 << 22
+    wave_elems: int = 1 << 22
+    mesh: int | None = None
+
+    def __post_init__(self) -> None:
+        if self.run_elems < 2:
+            raise ConfigError(f"run_elems must be >= 2, got {self.run_elems}")
+        if self.wave_elems < 2:
+            raise ConfigError(f"wave_elems must be >= 2, got {self.wave_elems}")
+        if self.mesh is not None and self.mesh < 1:
+            raise ConfigError(f"mesh must be >= 1, got {self.mesh}")

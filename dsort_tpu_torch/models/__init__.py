@@ -1,8 +1,9 @@
-"""Sort pipelines (the fused small-job route, the gather-merge sort) and
-sort-output validation.
+"""Sort pipelines (the fused small-job route, the gather-merge sort),
+sort-output validation, and the out-of-core sorts.
 
-Counterpart of ``dsort_tpu/models``: ``pipelines`` and ``validate`` are
-ported; the external sort and the wave pipeline are not yet.
+Counterpart of ``dsort_tpu/models``: ``pipelines``, ``validate``,
+``external_sort`` (`ExternalSort`, `ExternalTeraSort`) and ``wave_sort``
+(`ExternalWaveSort`, `ExternalWaveTeraSort`) are ported.
 """
 
 from dsort_tpu_torch.models.pipelines import (  # noqa: F401

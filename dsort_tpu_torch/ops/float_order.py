@@ -15,9 +15,11 @@ unsigned mapping followed by the sign-bit flip (the trick of
 
 -0.0 orders just before +0.0; ±0.0, ±inf and subnormals round-trip
 bit-exactly.  `unsigned_to_signed` / `signed_to_unsigned` are the plain
-sign-bit flip for unsigned integer keys; `sort_float_keys_via_uint` is the
-one float boundary every host entry point goes through, and
-`sort_narrow_keys_via_int32` the boundary of 8- and 16-bit integer keys.
+sign-bit flip for unsigned integer keys.  `float_to_ordered_uint` is the
+reference's carrier, derived from the signed one by that flip;
+`sort_float_keys_via_uint` is the one float boundary every host entry point
+goes through, and `sort_narrow_keys_via_int32` the boundary of 8- and
+16-bit integer keys.
 """
 
 from __future__ import annotations
@@ -108,24 +110,70 @@ def from_signed_keys(s: torch.Tensor, dtype) -> torch.Tensor:
     return s
 
 
+# -- the reference's carrier: ordered uints ------------------------------
+#
+# The reference carries float keys as same-width unsigned ints whose
+# unsigned order is the float order.  They are the signed carrier above
+# with its sign bit flipped, so the one bijection is `float_to_ordered_int`.
+# Every float host entry point, and every store that persists float keys
+# (manifest ``storage_dtype`` "uint32" / "uint64"), goes through them, so a
+# store either package wrote resumes in the other; on the device the keys
+# ride as signed ints again (`unsigned_to_signed`).
+
+_NP_FLOATS = (np.dtype(np.float16), np.dtype(np.float32), np.dtype(np.float64))
+
+
+def is_float_np_dtype(dtype) -> bool:
+    """True for the numpy float key dtypes the ordered-uint map takes."""
+    return np.dtype(dtype) in _NP_FLOATS
+
+
+def ordered_uint_dtype(float_dtype) -> np.dtype:
+    """The unsigned dtype a float key dtype maps to (same width)."""
+    return np.dtype(f"u{np.dtype(float_dtype).itemsize}")
+
+
+def _sign_bit(udtype: np.dtype):
+    return udtype.type(1 << (8 * udtype.itemsize - 1))
+
+
+def float_to_ordered_uint(x: np.ndarray) -> np.ndarray:
+    """Host float keys -> the reference's ordered uints: `float_to_ordered_int`
+    with the sign bit flipped (NaN -> all ones, negatives -> ``~bits``,
+    others -> ``bits | sign``)."""
+    x = np.ascontiguousarray(x)
+    if not is_float_np_dtype(x.dtype):
+        raise TypeError(f"not a float key dtype: {x.dtype}")
+    if not x.flags.writeable:  # a read-only memmap; torch wants a writable buffer
+        x = x.copy()
+    udtype = ordered_uint_dtype(x.dtype)
+    return float_to_ordered_int(torch.from_numpy(x)).numpy().view(udtype) ^ _sign_bit(udtype)
+
+
+def ordered_uint_to_float(m: np.ndarray, float_dtype) -> np.ndarray:
+    """Inverse of `float_to_ordered_uint` (NaNs come back canonical)."""
+    fdt = np.dtype(float_dtype)
+    udtype = ordered_uint_dtype(fdt)
+    m = np.asarray(m)
+    if m.dtype != udtype:
+        raise TypeError(f"expected {udtype} mapped keys, got {m.dtype}")
+    s = (m ^ _sign_bit(udtype)).view(f"i{udtype.itemsize}")
+    tdt = torch.from_numpy(np.empty(0, fdt)).dtype
+    return ordered_int_to_float(torch.from_numpy(s), tdt).numpy()
+
+
 def sort_float_keys_via_uint(sort_fn, keys: np.ndarray, *args, **kwargs):
-    """Run a sort of float host keys through the bijection: map to the
-    signed carrier, ``sort_fn(mapped, *args, **kwargs)``, unmap.
+    """Run a sort of float host keys through the ordered uints: map,
+    ``sort_fn(mapped, *args, **kwargs)``, unmap.
 
     ``sort_fn`` returns the sorted keys, or a tuple whose first element is
-    the sorted keys (key+payload drivers).  The reference's name is kept;
-    its carrier is the ordered uint, this package's the signed int.
+    the sorted keys (key+payload drivers).
     """
     keys = np.asarray(keys)
-    t = torch.from_numpy(np.ascontiguousarray(keys))
-    out = sort_fn(float_to_ordered_int(t).numpy(), *args, **kwargs)
-
-    def unmap(s: np.ndarray) -> np.ndarray:
-        return ordered_int_to_float(torch.from_numpy(np.ascontiguousarray(s)), t.dtype).numpy()
-
+    out = sort_fn(float_to_ordered_uint(keys), *args, **kwargs)
     if isinstance(out, tuple):
-        return (unmap(out[0]),) + out[1:]
-    return unmap(out)
+        return (ordered_uint_to_float(out[0], keys.dtype),) + out[1:]
+    return ordered_uint_to_float(out, keys.dtype)
 
 
 def is_narrow_int_dtype(dtype) -> bool:
@@ -138,7 +186,7 @@ def is_narrow_int_dtype(dtype) -> bool:
 def sort_narrow_keys_via_int32(sort_fn, keys: np.ndarray, *args, **kwargs):
     """Run a sort of 8- or 16-bit integer host keys as int32: widen (every
     value fits, so the order is kept), ``sort_fn(wide, *args, **kwargs)``,
-    narrow back.  Float16 keys reach it as their int16 carrier, through
+    narrow back.  Float16 keys reach it as their uint16 carrier, through
     `sort_float_keys_via_uint`.  ``sort_fn`` returns the sorted keys, or a
     tuple whose first element is the sorted keys."""
     keys = np.asarray(keys)

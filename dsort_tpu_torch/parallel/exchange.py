@@ -606,6 +606,21 @@ def _ring_plan_shard(xs, counts, *, mesh, oversample: int, kernel: str = "lax"):
     return xs, splitters, hist
 
 
+def _wave_plan_shard(xs, counts, splitters, *, kernel: str = "lax"):
+    """Plan of one wave of the out-of-core wave pipeline (`models.
+    wave_sort`): the local sort (``kernel``) and the bucket histogram
+    against FIXED splitters — `_ring_plan_shard` without the per-job
+    splitter choice, since the pipeline samples its splitters once so every
+    wave's buckets land on the same owners.  Returns ``(xs_sorted,
+    hist)``; the sorted shards stay on the device for the exchange, which
+    takes the same splitters."""
+    from dsort_tpu_torch.ops.local_sort import sort_padded
+
+    xs, _ = sort_padded(xs, counts, kernel)
+    _, hist = _bucket_bounds(xs, counts, splitters)
+    return xs, hist
+
+
 def _ring_plan_kv_shard(keys, payload, counts, *, mesh, oversample: int):
     """kv plan: the payload rides the local sort, so the exchange's bucket
     gathers see key-aligned rows."""

@@ -60,9 +60,18 @@ Under ``hier`` every re-form journals how the host grouping re-planned
 (``hier_reform``).  A worker `FaultInjector.slow` names is raced by the
 coded plane's straggler serve (`SampleSort.straggler_fn`).
 
-Not ported yet: checkpoints of shards and ranges (``checkpoint_dir`` is
-refused by `JobConfig.from_dict`) and the flight recorder (``obs.flight``):
-neither scheduler writes flight bundles.
+With ``JobConfig.checkpoint_dir`` and a ``job_id`` both schedulers resume
+(`checkpoint.ShardCheckpoint`, the reference's store): the task pool
+persists each sorted shard and restores it on a re-run
+(``shards_restored``); the SPMD scheduler persists its local-sort shards
+(``spmd_phase_restores``) and each shuffle range as it is read back, so a
+retry or a re-run restores the ranges on disk and re-sorts only the keys of
+the missing ones (``shuffle_ranges_restored``, ``shuffle_resort_keys``),
+or restores the whole shuffle (``shuffle_phase_restores``).  An attempt
+abandoned by a lapsed wait checks its cancel event before every write.
+Float keys of both schedulers ride as the reference's ordered uints, the
+carrier their stores hold.  Not ported yet: the flight recorder
+(``obs.flight``): neither scheduler writes flight bundles.
 """
 
 from __future__ import annotations
@@ -80,16 +89,16 @@ from dsort_tpu_torch.data.partition import partition
 from dsort_tpu_torch.device import device_scope, resolve_device
 from dsort_tpu_torch.ops.float_order import (
     from_signed_keys,
-    is_float_key_dtype,
     sort_float_keys_via_uint,
     to_signed_keys,
 )
-from dsort_tpu_torch.ops.local_sort import sort_with_kernel
+from dsort_tpu_torch.ops.local_sort import sort_padded, sort_with_kernel
 from dsort_tpu_torch.ops.merge import merge_sorted_host
 from dsort_tpu_torch.parallel.exchange import resolve_hier_hosts
 from dsort_tpu_torch.parallel.mesh import VirtualMesh
 from dsort_tpu_torch.parallel.sample_sort import SampleSort
 from dsort_tpu_torch.scheduler.fault import (
+    AttemptCancelled,
     FaultInjector,
     JobFailedError,
     ProgramWaitTimeout,
@@ -318,9 +327,16 @@ class Scheduler:
 
     def _handle_shard(
         self, i: int, shard: np.ndarray, results: list, metrics: Metrics,
-        errors: list | None = None,
+        ckpt=None, errors: list | None = None,
     ) -> None:
-        """One shard's lifecycle: the reference's ``worker_handler`` loop."""
+        """One shard's lifecycle: the reference's ``worker_handler`` loop.
+        With a store, a shard an earlier run of the job finished is restored
+        instead of sorted, and a shard sorted now is persisted."""
+        if ckpt is not None and ckpt.has(i):
+            results[i] = ckpt.load(i)
+            metrics.bump("shards_restored")
+            metrics.event("checkpoint_restore", kind="shard", id=i)
+            return
         worker = i if self.table.is_alive(i) else -1
         transient_left = self.job.max_transient_retries
         while True:
@@ -331,6 +347,8 @@ class Scheduler:
             try:
                 metrics.event("attempt_start", shard=i, worker=worker)
                 results[i] = self._attempt(worker, shard, metrics)
+                if ckpt is not None:
+                    ckpt.save(i, results[i])
                 return  # result pinned to slot i (server.c:415)
             except Exception as e:
                 kind = classify_runtime_error(e)
@@ -389,17 +407,34 @@ class Scheduler:
         Raises `JobFailedError` if any shard could not complete (every
         worker dead); the scheduler stays usable for the next job.  A
         program error of a shard's attempt propagates once every shard's
-        handler has ended.
+        handler has ended.  With ``job.checkpoint_dir`` and a ``job_id``,
+        finished shards persist across runs, so a re-run re-sorts only the
+        shards that were lost; a store of other data or layout is cleared
+        first (`ShardCheckpoint.sync_manifest`).
         """
         data = np.asarray(data)
         if data.dtype.kind == "f":
-            # Workers and the host merge only ever see the signed carrier.
+            # Workers, the store and the host merge see ordered uints only.
             return sort_float_keys_via_uint(self.run_job, data, metrics, job_id)
         metrics = metrics if metrics is not None else Metrics()
         timer = PhaseTimer(metrics)
         w = self.executor.num_workers
         metrics.event("job_start", mode="taskpool", n_keys=len(data), job_id=job_id)
         self.table.revive_all()  # server.c:222,278
+        ckpt = None
+        if self.job.checkpoint_dir and job_id:
+            from dsort_tpu_torch.checkpoint import ShardCheckpoint
+            from dsort_tpu_torch.models.external_sort import _fingerprint
+
+            ckpt = ShardCheckpoint(self.job.checkpoint_dir, job_id)
+            ckpt.journal = metrics.journal
+            # A re-run after the file's contents (or the worker count)
+            # changed must not serve stale shards.
+            if ckpt.sync_manifest(w, data.dtype, len(data), _fingerprint(data)):
+                log.warning(
+                    "job %r: checkpointed shards belong to different data or layout; "
+                    "cleared", job_id,
+                )
         with timer.phase("partition"):
             shards = partition(data, w)
         results: list[np.ndarray | None] = [None] * w
@@ -407,7 +442,8 @@ class Scheduler:
         with timer.phase("dispatch"):
             threads = [
                 threading.Thread(
-                    target=self._handle_shard, args=(i, shards[i], results, metrics, errors),
+                    target=self._handle_shard,
+                    args=(i, shards[i], results, metrics, ckpt, errors),
                 )
                 for i in range(w)
             ]
@@ -582,6 +618,162 @@ class SpmdScheduler:
             metrics.bump("device_deaths", len(dead))
         return dead
 
+    @staticmethod
+    def _check_cancelled(cancelled: threading.Event | None) -> None:
+        """Abandoned-attempt guard before every state-mutating step.
+
+        A lapsed bounded wait abandons its attempt, but the attempt's lane
+        thread may still be running (inside a device call that later
+        returns).  Checking the cancel event just before each checkpoint
+        write means a zombie can never interleave its stale layout (old mesh
+        size, old ``n_ranges``) with the live attempt's.  A zombie already
+        inside one atomic file write completes that write; the live attempt
+        clears leftover ranges before writing its own.
+        """
+        if cancelled is not None and cancelled.is_set():
+            raise AttemptCancelled("attempt abandoned by bounded wait")
+
+    def _local_sort_phase(
+        self, data: np.ndarray, ckpt, metrics: Metrics,
+        cancelled: threading.Event | None = None,
+    ) -> np.ndarray:
+        """The local-sort phase, persisted at its boundary: one sorted shard
+        per worker of the scheduler (``torch.sort``, `sort_padded`'s default
+        kernel, as the reference's ``lax``), or all of them restored
+        (``spmd_phase_restores``).  Returns the concatenated sorted shards:
+        input for the shuffle, which is order-agnostic."""
+        from dsort_tpu_torch.data.partition import pad_to_shards
+
+        done = set(ckpt.completed_shards())
+        w = max(len(self.devices), 1)
+        shards, counts = pad_to_shards(data, w)
+        if done != set(range(w)):
+            with device_scope(self.device):
+                x = torch.from_numpy(shards).to(self.device)
+                c = torch.from_numpy(counts).to(self.device)
+                y, _ = sort_padded(to_signed_keys(x), c)
+                host = from_signed_keys(y, x.dtype).cpu().numpy()
+            for i in range(w):
+                if i not in done:
+                    self._check_cancelled(cancelled)
+                    ckpt.save(i, host[i, : counts[i]])
+        else:
+            metrics.bump("spmd_phase_restores")
+            metrics.event("checkpoint_restore", kind="local_sort_phase", n=w)
+        return np.concatenate([ckpt.load(i) for i in range(w)])
+
+    def _shuffle_with_range_checkpoint(
+        self, work: np.ndarray, ckpt, ss: SampleSort, metrics: Metrics, live: list[int],
+        cancelled: threading.Event | None = None, **knobs,
+    ) -> np.ndarray:
+        """The shuffle phase with one persisted file per key range.
+
+        Each range persists as soon as it is read back, so a loss while the
+        ranges are assembled costs only the unfetched ones: the retry
+        restores what is on disk and re-sorts just the missing keys
+        (`_resume_missing_ranges`), and a re-run with every range on disk
+        restores the whole phase (``shuffle_phase_restores``).
+        """
+        man = ckpt.manifest() or {}
+        n_ranges = man.get("n_ranges")
+        done = ckpt.completed_ranges()
+        if n_ranges is not None and done:
+            if len(done) == n_ranges:
+                metrics.bump("shuffle_phase_restores")
+                metrics.event("checkpoint_restore", kind="shuffle_phase", n=n_ranges)
+                return np.concatenate([ckpt.load_range(i) for i in sorted(done)])
+            return self._resume_missing_ranges(work, ckpt, ss, done, metrics, cancelled, **knobs)
+        outs = ss.sort_ranges(work, metrics, **knobs)
+        self._check_cancelled(cancelled)
+        # A fresh sort's ranges are views of one buffer in global order:
+        # return it rather than concatenating (wrappers around sort_ranges,
+        # as the drills have, may return separate arrays).
+        base = outs[0].base if outs else None
+        if base is not None and all(o.base is base for o in outs) and len(base) == len(work):
+            buf = base
+        else:
+            buf = np.concatenate(outs)
+        # Leftover ranges of an abandoned attempt or a torn run may come from
+        # another mesh size: drop them before recording this layout.
+        ckpt.clear_ranges()
+        ckpt.write_manifest(
+            man.get("num_shards", len(self.devices)), work.dtype,
+            man.get("total", len(work)), fingerprint=man.get("fingerprint"),
+            n_ranges=len(outs),
+        )
+        for i, r in enumerate(outs):
+            # Injection point: worker live[i] dies while its range is read
+            # back; ranges 0..i-1 are already on disk.
+            if self.injector is not None:
+                self.injector.check(live[min(i, len(live) - 1)], "assemble")
+            self._check_cancelled(cancelled)
+            ckpt.save_range(i, r)
+        return buf
+
+    def _resume_missing_ranges(
+        self, work: np.ndarray, ckpt, ss: SampleSort, done: list[int], metrics: Metrics,
+        cancelled: threading.Event | None = None, **knobs,
+    ) -> np.ndarray:
+        """Re-sort only the keys of the ranges that were lost.
+
+        The missing multiset is rebuilt by value: a key strictly inside a
+        persisted range's [min, max] belongs to it; of a key equal to a
+        persisted range's bound, (copies in the input) - (copies on disk)
+        are missing.  The subset (any length) sorts on the live mesh and
+        merges with the persisted ranges on the host; the result persists
+        as one range, so the next run of the job restores it whole.  Timed
+        as the phases ``resume_subset``, ``resume_sort``, ``resume_merge``
+        and ``resume_rewrite``.
+        """
+        timer = PhaseTimer(metrics)
+        with timer.phase("resume_subset"):
+            present = [ckpt.load_range(i) for i in sorted(done)]
+            nonempty = [r for r in present if len(r)]
+            in_present = np.zeros(len(work), bool)
+            boundary_vals = set()
+            for r in nonempty:
+                lo, hi = r[0], r[-1]
+                in_present |= (work > lo) & (work < hi)
+                boundary_vals.update((lo.item(), hi.item()))
+            subset = work[~in_present & ~np.isin(work, list(boundary_vals))]
+            parts = [subset]
+            for v in boundary_vals:
+                missing_v = int((work == v).sum()) - sum(int((r == v).sum()) for r in nonempty)
+                if missing_v > 0:
+                    parts.append(np.full(missing_v, v, dtype=work.dtype))
+            subset = np.concatenate(parts)
+        metrics.bump("shuffle_ranges_restored", len(done))
+        metrics.bump("shuffle_resort_keys", len(subset))
+        metrics.event(
+            "checkpoint_restore", kind="shuffle_ranges", n=len(done), resort_keys=len(subset),
+        )
+        log.warning(
+            "shuffle resume: %d/%d ranges restored; re-sorting %d of %d keys",
+            len(done), (ckpt.manifest() or {}).get("n_ranges", -1), len(subset), len(work),
+        )
+        with timer.phase("resume_sort"):  # holds the subset sort's own phases
+            sorted_subset = ss.sort(subset, metrics, **knobs)
+        with timer.phase("resume_merge"):
+            present_concat = np.concatenate(present) if present else subset[:0]
+            out = merge_sorted_host([present_concat, sorted_subset])
+        if len(out) != len(work):  # the reconstruction must be lossless
+            raise JobFailedError(
+                f"shuffle resume reconstructed {len(out)} of {len(work)} keys; clearing "
+                "the checkpoint and re-running is required"
+            )
+        # Crash-safe order: a crash mid-rewrite leaves no ranges (a full
+        # re-shuffle) or one all-covering range (an empty subset next time).
+        self._check_cancelled(cancelled)
+        with timer.phase("resume_rewrite"):
+            man = ckpt.manifest() or {}
+            ckpt.clear_ranges()
+            ckpt.save_range(0, out)
+            ckpt.write_manifest(
+                man.get("num_shards", len(self.devices)), work.dtype,
+                man.get("total", len(work)), fingerprint=man.get("fingerprint"), n_ranges=1,
+            )
+        return out
+
     def _wait_budget(self, n_keys: int, warm: bool) -> float:
         j = self.job
         b = (
@@ -593,6 +785,7 @@ class SpmdScheduler:
 
     def run_bounded(
         self, fn, n_keys: int, tag: str = "prog", lane_key=None, boost: float = 1.0,
+        cancel_event: threading.Event | None = None,
     ):
         """Run a whole device program under the bounded-wait discipline.
 
@@ -603,8 +796,10 @@ class SpmdScheduler:
         attempt is abandoned and `ProgramWaitTimeout` is raised (``.cold``
         says whether the bucket had never completed).  The abandoned
         attempt is not stopped: it runs on to its end on its lane (beside
-        the next attempt, on the same card) and its result is dropped.  A
-        genuine ``TimeoutError`` raised *inside* ``fn`` re-raises as itself.
+        the next attempt, on the same card) and its result is dropped; a lapse
+        sets ``cancel_event``, which the attempt checks before each write of
+        shared state (`_check_cancelled`).  A genuine ``TimeoutError``
+        raised *inside* ``fn`` re-raises as itself.
         """
         key = lane_key if lane_key is not None else self._lane_key(tag)
         warm = (key, _size_bucket(n_keys))
@@ -612,6 +807,8 @@ class SpmdScheduler:
         box, done, abandoned = self._mesh_lane(key).submit(fn)
         if not done.wait(timeout=budget):
             abandoned.set()
+            if cancel_event is not None:
+                cancel_event.set()
             err = ProgramWaitTimeout(
                 f"in-flight program wait exceeded {budget:.1f}s on {key[0]}"
             )
@@ -636,6 +833,16 @@ class SpmdScheduler:
 
         state = getattr(e, "coded_state", None)
         if state is None:
+            return None
+        if state.n != len(data):
+            # The snapshot covers part of the job only: a coded loss inside a
+            # checkpoint resume's subset re-sort.  Completing from it would
+            # return the subset as the job's output and drop every restored
+            # range; the re-run's next attempt resumes correctly instead.
+            log.warning(
+                "coded snapshot covers %d of %d keys (a resume-subset dispatch); "
+                "taking the re-run path", state.n, len(data),
+            )
             return None
         positions = dead_positions(e, live)
         rec = journal_recovery(metrics, state, positions)
@@ -681,16 +888,44 @@ class SpmdScheduler:
         same fault discipline, recovered by re-run (a handle is no host
         snapshot); a later re-form invalidates it and it re-runs on the
         live mesh at its next use.
+
+        With ``job.checkpoint_dir`` and a ``job_id`` the job resumes: its
+        local-sort shards and its shuffle ranges persist
+        (`checkpoint.ShardCheckpoint`; a store of other data is cleared), a
+        retry after a loss re-sorts only the keys of the ranges not yet on
+        disk, and a re-run with every range on disk restores them.  A
+        device-resident job persists nothing (warned): its recovery is the
+        re-run.  Float keys ride as the reference's ordered uints, the
+        carrier the store holds.
         """
         data = np.asarray(data)
-        if keep_on_device and is_float_key_dtype(data.dtype):
+        if keep_on_device and data.dtype.kind == "f":
             raise TypeError("keep_on_device supports integer keys only; use sort() for floats")
         knobs = _sort_kwargs(exchange, redundancy, redundancy_mode)
-        if is_float_key_dtype(data.dtype):
+        if data.dtype.kind == "f":
             return sort_float_keys_via_uint(self.sort, data, metrics, job_id, **knobs)
         metrics = metrics if metrics is not None else Metrics()
         metrics.event("job_start", mode="spmd", n_keys=len(data), job_id=job_id)
         self.table.revive_all()
+        ckpt = None
+        work = data
+        if keep_on_device and self.job.checkpoint_dir and job_id:
+            log.warning(
+                "keep_on_device skips range checkpointing for job %r: the device-resident "
+                "handle re-runs on failure instead of restoring persisted ranges", job_id,
+            )
+            job_id = None
+        if self.job.checkpoint_dir and job_id and len(data):
+            from dsort_tpu_torch.checkpoint import ShardCheckpoint
+            from dsort_tpu_torch.models.external_sort import _fingerprint
+
+            ckpt = ShardCheckpoint(self.job.checkpoint_dir, job_id)
+            ckpt.journal = metrics.journal
+            # A reused job_id with other same-length data must not serve stale
+            # shards or ranges; a matching manifest keeps its n_ranges record.
+            if ckpt.sync_manifest(len(self.devices), data.dtype, len(data), _fingerprint(data)):
+                log.warning("job %r: checkpointed state belongs to different data; cleared",
+                            job_id)
         transient_retries = 0
         # Counts only healthy-probe WAIT lapses (not generic transient
         # runtime errors): the budget boost grows only when the wait itself
@@ -705,14 +940,30 @@ class SpmdScheduler:
                 )
                 raise JobFailedError("job failed: no live devices remain")
             metrics.event("attempt_start", live=list(live))
+            cancelled = threading.Event()
 
-            def attempt(live=live):
-                # The WHOLE attempt — dispatch and the blocking device
-                # fetch inside SampleSort — runs on the mesh lane, so a hang
-                # anywhere in flight is caught by the bounded wait.  `live`
-                # is bound per attempt: an abandoned attempt that wakes
-                # later still runs on its own mesh.
-                # Injection point: a worker lost before dispatch.
+            def attempt(live=live, cancelled=cancelled):
+                # The WHOLE attempt — the checkpointed phases, dispatch and
+                # the blocking device fetch inside SampleSort — runs on the
+                # mesh lane, so a hang anywhere in flight is caught by the
+                # bounded wait.  `live` and `cancelled` are bound per
+                # attempt: an abandoned attempt that wakes later still runs
+                # on its own mesh and writes no checkpoint.
+                nonlocal work
+                if ckpt is not None:
+                    # A full restore (every shuffle range on disk) never
+                    # reads `work`: skip the local-sort phase's restore.
+                    man0 = ckpt.manifest() or {}
+                    full_restore = (
+                        man0.get("n_ranges") is not None
+                        and len(ckpt.completed_ranges()) == man0["n_ranges"]
+                    )
+                    if not full_restore:
+                        w = self._local_sort_phase(data, ckpt, metrics, cancelled)
+                        self._check_cancelled(cancelled)
+                        work = w
+                # Injection point: a worker lost before dispatch (after the
+                # checkpointed local-sort phase).
                 if self.injector is not None:
                     for i in live:
                         self.injector.check(i, "spmd")
@@ -757,17 +1008,20 @@ class SpmdScheduler:
                     )
                 else:
                     ss.fault_hook = ss.straggler_fn = ss.fetch_delay_fn = None
-                kw = dict(knobs)
-                if keep_on_device:
-                    kw["keep_on_device"] = True
                 with device_scope(self.device):
-                    return ss.sort(data, metrics, **kw)
+                    if keep_on_device:
+                        return ss.sort(work, metrics, keep_on_device=True, **knobs)
+                    if ckpt is None:
+                        return ss.sort(work, metrics, **knobs)
+                    return self._shuffle_with_range_checkpoint(
+                        work, ckpt, ss, metrics, live, cancelled, **knobs
+                    )
 
             try:
                 out = self.run_bounded(
                     attempt, len(data), tag="spmd",
                     lane_key=("spmd",) + tuple(live),
-                    boost=float(2 ** wait_lapses),
+                    boost=float(2 ** wait_lapses), cancel_event=cancelled,
                 )
                 for i in live:  # proof of life: the collective completed
                     self.table.heartbeat(i)

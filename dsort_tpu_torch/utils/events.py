@@ -33,6 +33,10 @@ EVENT_TYPES: dict[str, str] = {
     "capacity_retry": "an all_to_all bucket overflowed; retry resized "
                       "(observed, cap_pair)",
     "transient_retry": "a transient runtime error retried in place (worker)",
+    "checkpoint_persist": "shard/range state persisted (kind, id, n)",
+    "checkpoint_restore": "persisted state restored instead of re-sorting "
+                          "(kind, n)",
+    "checkpoint_clear": "stale/partial persisted state was cleared (reason)",
     "phase_start": "a timed phase opened (phase)",
     "phase_end": "a timed phase closed (phase, seconds)",
     "exchange_step": "one ring exchange step was planned with its measured "
@@ -102,6 +106,14 @@ EVENT_TYPES: dict[str, str] = {
                    "worker re-forms within its host; a lost host shrinks "
                    "the (H,H) legs to survivors or downgrades to the flat "
                    "ring (survivors, hosts_before, hosts_after, downgraded)",
+    # The out-of-core wave pipeline (models.wave_sort):
+    "wave_start": "one input wave entered the mesh pipeline "
+                  "(wave, n_keys)",
+    "wave_done": "a wave's runs all landed in the (wave, run) store "
+                 "(wave, runs, n_keys)",
+    "wave_resume": "an interrupted wave's missing runs were re-sorted at "
+                   "run granularity — restart-resume or in-flight repair "
+                   "(wave, missing, present, reason)",
 }
 
 #: Every `Metrics.bump` name in this package, with its meaning, under the
@@ -117,6 +129,13 @@ COUNTERS: dict[str, str] = {
     "mesh_reforms": "SPMD mesh re-formed over surviving workers",
     "spmd_wait_timeouts": "bounded in-flight SPMD program waits lapsed",
     "capacity_retries": "all_to_all bucket overflows resized and re-run",
+    "shards_restored": "taskpool shards served from checkpoint",
+    "spmd_phase_restores": "SPMD local-sort phases restored from checkpoint",
+    "shuffle_phase_restores": "SPMD shuffle phases fully restored",
+    "shuffle_ranges_restored": "persisted shuffle ranges restored",
+    "shuffle_resort_keys": "keys re-sorted by the shuffle resume path",
+    "runs_resumed": "external-sort runs restored from a previous run",
+    "runs_sorted": "external-sort runs sorted this run",
     "fused_small_jobs": "jobs served by the fused single-program path",
     "fused_fallbacks": "fused-path failures retried on the SPMD scheduler",
     "device_handles": "device-resident result handles made",
@@ -154,6 +173,10 @@ COUNTERS: dict[str, str] = {
     "dcn_bytes_saved": "inter-host bytes the two-level schedule avoided vs "
                        "the flat ring's cross-host transfers for the same "
                        "measured histogram",
+    "waves_sorted": "input waves run through the mesh exchange pipeline",
+    "wave_runs_resorted": "(wave, run) store entries re-sorted by the "
+                          "run-granular resume/repair path",
+    "wave_resort_keys": "keys re-sorted by the wave resume/repair path",
 }
 
 

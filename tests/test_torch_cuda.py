@@ -787,3 +787,109 @@ def test_gf2mul_and_parity_fold_on_cuda(cuda):
     rows = [torch.randint(0, 256, (8, 4096), dtype=torch.uint8) for _ in range(8)]
     for a, b in zip(ex._parity_fold([r.to(cuda) for r in rows], 2), ex._parity_fold(rows, 2)):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.uint32, np.float32])
+def test_external_sort_on_cuda(cuda, tmp_path, dtype):
+    """`ExternalSort` of 2^20 keys in 4 runs on the card: numpy's bits (the
+    float oracle through the ordered-uint order), the block kernels
+    launched for every run, and a resume that sorts nothing."""
+    from dsort_tpu_torch.models.external_sort import ExternalSort
+    from dsort_tpu_torch.ops.float_order import float_to_ordered_uint, ordered_uint_to_float
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    rng = np.random.default_rng(40)
+    if dtype == np.float32:
+        data = rng.standard_normal(1 << 20).astype(dtype)
+        data[::97] = np.nan
+        data[::89] = -0.0
+        want = ordered_uint_to_float(np.sort(float_to_ordered_uint(data)), dtype)
+    else:
+        data = _keys(rng, 1 << 20, dtype)
+        want = np.sort(data)
+    s = ExternalSort(run_elems=1 << 18, spill_dir=str(tmp_path), job_id="x")
+    tb.reset_launch_counts()
+    m = Metrics()
+    out = s.sort(data, metrics=m)
+    assert np.array_equal(out.view(f"u{out.dtype.itemsize}"), want.view(f"u{want.dtype.itemsize}"))
+    assert m.counters["runs_sorted"] == 4
+    assert tb.launch_counts()["bitonic_tile_kernel"] >= 4
+    m2 = Metrics()
+    s.sort(data, metrics=m2)
+    assert m2.counters["runs_resumed"] == 4 and "runs_sorted" not in m2.counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["ring", "fused", "hier"])
+def test_external_wave_sort_on_cuda(cuda, tmp_path, exchange):
+    """`ExternalWaveSort(VirtualMesh(8))` of 2^20 int32 in 4 waves on the
+    card: numpy's bits, the block kernels launched in every wave's plan
+    (``block``: rows of 2^15 keys are under ``auto``'s threshold), one R1
+    launch a wave under ``fused``; and with the overlap off the same
+    bits."""
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.models.wave_sort import ExternalWaveSort
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    data = _keys(np.random.default_rng(41), 1 << 20, np.int32)
+    for overlap in (True, False):
+        s = ExternalWaveSort(VirtualMesh(8), wave_elems=1 << 18, spill_dir=str(tmp_path),
+                             job_id=f"w{overlap}", exchange=exchange, overlap=overlap,
+                             job=JobConfig(local_kernel="block"))
+        tb.reset_launch_counts()
+        rk.reset_launch_counts()
+        m = Metrics()
+        out = s.sort(data, metrics=m)
+        torch.cuda.synchronize()
+        assert np.array_equal(out, np.sort(data))
+        assert m.counters["waves_sorted"] == 4
+        assert tb.launch_counts()["bitonic_tile_kernel"] >= 4
+        assert rk.launch_counts()["ring_exchange_kernel"] == (4 if exchange == "fused" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_external_wave_sort_cuda_error_propagates_on_cuda(cuda, tmp_path, overlap):
+    """A `cudaErrorLaunchFailure` in wave 2's dispatch on the card is not
+    repaired on the host: the job raises it, no run is re-sorted, waves 0
+    and 1 are durable, and the re-run resumes them and sorts the other
+    two waves on the card."""
+    from dsort_tpu_torch.checkpoint import ShardCheckpoint
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.models.wave_sort import ExternalWaveSort
+    from dsort_tpu_torch.ops.errors import KernelLaunchError
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    data = _keys(np.random.default_rng(42), 1 << 20, np.int32)
+
+    def sorter():
+        return ExternalWaveSort(VirtualMesh(8), wave_elems=1 << 18, spill_dir=str(tmp_path),
+                                job_id="lost", overlap=overlap,
+                                job=JobConfig(local_kernel="block"))
+
+    s = sorter()
+    calls = {"n": 0}
+
+    def hook():
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise KernelLaunchError("ring_exchange", 719)
+
+    s.fault_hook = hook
+    m = Metrics()
+    with pytest.raises(KernelLaunchError) as e:
+        s.sort(data, metrics=m)
+    assert e.value.name == "cudaErrorLaunchFailure"
+    assert "wave_runs_resorted" not in m.counters
+    done = ShardCheckpoint(str(tmp_path), "lost").completed_wave_runs()
+    assert sorted({w for w, _ in done}) == [0, 1] and len(done) == 16
+    tb.reset_launch_counts()
+    m = Metrics()
+    out = sorter().sort(data, metrics=m)
+    torch.cuda.synchronize()
+    assert np.array_equal(out, np.sort(data))
+    assert m.counters["runs_resumed"] == 16 and m.counters["waves_sorted"] == 2
+    assert tb.launch_counts()["bitonic_tile_kernel"] >= 2
