@@ -143,7 +143,26 @@ Phases (any failure raises, so the exit code is non-zero):
    about 3/8 of the keys re-sorted, the time to recover), the full restore
    (zero launches), the task pool's re-run at 2^24 (8 shards restored,
    zero launches) and ``cli run --checkpoint-dir --job-id`` (the scheduler,
-   then the restore).
+   then the restore);
+11. the batch and multi-process planes (`batch_and_multiprocess`):
+   `BatchSampleSort` buckets against single sorts, records, its checkpoint
+   drill and ``cli batch``; two ranks of a gloo group on the card, under
+   the all-to-all and ``hier``, and the crash drill;
+12. the serving plane (`serving`): `SortService` on ``VirtualMesh(8)`` in
+   8 slices, each a CUDA stream: 3 tenants x 4 jobs of 2^19 / 2^18 int32
+   beside phase 4's 2^26 job on the whole mesh, every output numpy's bits,
+   a small job's and the big job's launches equal to `fused_sort_small`'s
+   and `SpmdScheduler.sort`'s and the window's to their sum; jobs/s, the
+   queue wait's p95 per tenant from ``job_dequeued``, the variant cache's
+   hit rate (a gate: at least 0.5); the packed window against one slice in
+   turns; int64, float32 and ``pallas`` jobs; a big job under ``fused``
+   (one R1 launch); a slice loss (the time to recover in turns), a hang on
+   a slice, a re-form under the big job; the admission verdicts and
+   weights; ``cli serve`` as a subprocess (a ``/metrics`` scrape on
+   localhost, SIGINT with a job queued, exit 0, the drained journal); the
+   planner's exchange at 2^26 uniform int32 and 2^24 zipf int64; a real
+   device-side assert in a child service (``--serve-real-error-child``:
+   every slice retired, the queued job failed, no hang).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -2278,6 +2297,462 @@ def batch_and_multiprocess(card, ss, reset, counts, launched, keys_path, work) -
     log(f"phase 11 batch_and_multiprocess: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
+def serve_real_error_child() -> int:
+    """A `SortService(8)` on the card whose first small job hits a real
+    device-side assert (an out-of-range ``index_select``).  Prints what
+    the service made of it as JSON and exits 3 when it ended as it must:
+    the job failed, every slice retired, the queued jobs failed with no
+    slice left, and ``shutdown`` returned."""
+    from dsort_tpu_torch.config import JobConfig, ServeConfig
+    from dsort_tpu_torch.models import pipelines
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.utils.events import EventLog
+
+    def out_of_range(*args):
+        def sort_row(x, count):
+            return torch.index_select(x, 0, torch.tensor([1 << 30], device=x.device))
+        return sort_row
+
+    pipelines._fused_small_fn = out_of_range
+    journal = EventLog()
+    svc = SortService(8, job=JobConfig(settle_delay_s=0.01, heartbeat_timeout_s=5.0),
+                      serve=ServeConfig(slice_devices=4), journal=journal, start=False)
+    rng = np.random.default_rng(5)
+    tickets = [svc.submit(random_keys(rng, 1 << 18, np.int32), tenant="acme")[1]
+               for _ in range(3)]
+    t0 = time.perf_counter()
+    svc.start()
+    outcomes = []
+    for t in tickets:
+        try:
+            t.result(timeout=120)
+            outcomes.append("ok")
+        except Exception as e:
+            outcomes.append(f"{type(e).__name__}: {str(e).splitlines()[0][:80]}")
+    closed = svc.shutdown(drain=True, timeout=120)
+    print(json.dumps({
+        "outcomes": outcomes, "closed": closed, "slices": svc.stats()["slices"],
+        "retired": [e.fields for e in journal.events() if e.type == "slice_retired"],
+        "seconds": round(time.perf_counter() - t0, 3), "types": journal.types(),
+    }))
+    ok = (closed and svc.stats()["slices"] == 0 and "device-side assert" in outcomes[0]
+          and "no live mesh slices" in outcomes[-1] and "ok" not in outcomes)
+    return 3 if ok else 1
+
+
+def serving(card, x32, ref32, z, refz, reset, counts, launched, keys_path, work) -> None:
+    """Phase 12: the serving plane on the card (`serve.SortService`).
+
+    ``VirtualMesh(8)`` in slices of one worker, each slice a CUDA stream:
+    3 tenants x 4 uniform int32 jobs of 2^19 and 2^18 keys (the fused
+    route) beside one 2^26 job on the whole mesh (phase 4's keys), every
+    output held to numpy's bits; the launches of a small job and of the big
+    job held to `fused_sort_small`'s and `SpmdScheduler.sort`'s at those
+    sizes, and the window's to their sum; jobs/s, the p95 queue wait and
+    the tenants' p95 ratio from ``job_dequeued``, the variant cache's hit
+    rate; the packed window against one slice, in turns; int64, float32
+    and ``pallas`` small jobs; a big job under ``fused`` (one R1 launch); a
+    slice loss (evicted, re-admitted, exact; time to recover in turns), a
+    hang on a slice (evicted at its bound), a re-form under the big job
+    (the dead worker's slice retired); the admission verdicts
+    (``queue_full``, ``tenant_limit``, ``slo_shed``) and weights; ``cli
+    serve`` as a subprocess (a ``/metrics`` scrape, SIGINT with jobs
+    queued, exit 0, the drained journal, the output file); the planner's
+    exchange at 2^26 uniform int32 and 2^24 zipf int64; a real
+    device-side assert in a child service (every slice retired, no hang).
+    """
+    import os
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    from dsort_tpu_torch.config import JobConfig, ServeConfig
+    from dsort_tpu_torch.models import pipelines as pl
+    from dsort_tpu_torch.obs.plan import replay_decision
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+    from dsort_tpu_torch.scheduler import FaultInjector, SpmdScheduler
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.utils.events import EventLog
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    n_big = len(x32)
+    tenants = ("acme", "blue", "coral")
+    fast = JobConfig(settle_delay_s=0.01)
+
+    def service(job=fast, **serve_kw):
+        journal = EventLog()
+        serve_kw.setdefault("max_queue_depth", 64)
+        serve_kw.setdefault("max_tenant_inflight", 32)
+        return SortService(8, job=job, serve=ServeConfig(**serve_kw), journal=journal,
+                           start=False), journal
+
+    def small_jobs(seed):
+        r = np.random.default_rng(seed)
+        return [(tenants[i % 3], random_keys(r, 1 << (19 - i % 2), np.int32)) for i in range(12)]
+
+    def run_window(svc, jobs):
+        """Submit every job, run them, then hold each output to numpy's;
+        returns the seconds from the first submission to the last result
+        (numpy's sorts are taken before the clock starts)."""
+        refs = [ref32 if d is x32 else np.sort(d) for _, d in jobs]
+        t0 = time.perf_counter()
+        tickets = [svc.submit(d, tenant=t)[1] for t, d in jobs]
+        svc.start()
+        outs = [tk.result(timeout=300) for tk in tickets]
+        wall = time.perf_counter() - t0
+        for (_, d), out, want in zip(jobs, outs, refs):
+            if not same_bits(out, want):
+                raise AssertionError(f"serve: a {d.dtype} job of {len(d)} keys differs from numpy")
+        return wall
+
+    # 12.1 each small size and the big job alone: the service's launches
+    # equal fused_sort_small's and SpmdScheduler.sort's at those sizes.
+    svc, journal = service()
+    svc.start()
+    fresh = svc.prewarm(sizes=[1 << 18, 1 << 19])
+    compiled = [e.fields for e in journal.events() if e.type == "variant_compiled"]
+    streams = {s if s is None else s.cuda_stream for s in svc._streams.values()}
+    if fresh != 2 or len(compiled) != 2 * len(streams):  # one first call per rung and stream
+        raise AssertionError(f"serve prewarm: {fresh} rungs, {len(compiled)} first calls")
+    log(f"serve 12.1 prewarm 2^18, 2^19 int32 on {len(streams)} slice streams: first calls "
+        f"{[round(c['compile_s'] * 1e3, 3) for c in compiled]} ms (peak bytes "
+        f"{compiled[0]['peak_hbm_bytes']}, argument {compiled[0]['argument_hbm_bytes']}) [{card}]")
+    per_job = {}
+    for n in (1 << 18, 1 << 19):
+        x = random_keys(rng, n, np.int32)
+        reset()
+        pl.fused_sort_small(x)
+        want = launched(f"fused_sort_small n={n}", keys_path)
+        reset()
+        out = svc.submit(x, tenant="acme")[1].result(timeout=120)
+        got = launched(f"serve small job n={n}", keys_path)
+        if got != want or not same_bits(out, np.sort(x)):
+            raise AssertionError(f"serve small job n={n}: launches {got} != {want}")
+        per_job[n] = got
+        log(f"serve small job n=2^{n.bit_length() - 1}: launches {got} (= fused_sort_small's)")
+    reset()
+    SpmdScheduler(8).sort(x32)
+    want = launched("SpmdScheduler.sort 2^26", keys_path)
+    reset()
+    out = svc.submit(x32, tenant="acme")[1].result(timeout=300)
+    got = launched("serve big job 2^26", keys_path)
+    if got != want or not same_bits(out, ref32):
+        raise AssertionError(f"serve big job: launches {got} != SpmdScheduler's {want}")
+    per_job[n_big] = got
+    log(f"serve big job n=2^26: launches {got} (= SpmdScheduler.sort's)")
+    svc.shutdown()
+
+    # 12.2 the packed window: 12 small jobs of 3 tenants and the big job.
+    svc, journal = service()
+    svc.prewarm(sizes=[1 << 18, 1 << 19])
+    jobs = small_jobs(1) + [("acme", x32)]
+    reset()
+    wall = run_window(svc, jobs)
+    got = counts()
+    want = {k: 6 * per_job[1 << 18].get(k, 0) + 6 * per_job[1 << 19].get(k, 0)
+            + per_job[n_big].get(k, 0) for k in got}
+    if {k: v for k, v in got.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"serve window launches {got} != the jobs' sum {want}")
+    deq = [e.fields for e in journal.events() if e.type == "job_dequeued"]
+    waits = {t: [f["wait_s"] for f in deq if f["tenant"] == t] for t in tenants}
+    p95 = {t: float(np.percentile(w, 95)) for t, w in waits.items()}
+    hit = svc.variants.hit_rate()
+    if hit < 0.5:
+        raise AssertionError(f"serve: variant cache hit rate {hit} < 0.5 over repeat sizes")
+    slices_used = sorted({tuple(f["slices"]) for f in deq if not f["big"]})
+    log(f"serve 12.2 window: 12 small jobs (3 tenants, 2^19 / 2^18 int32) + 1 big (2^26) in "
+        f"{wall * 1e3:.3f} ms = {len(jobs) / wall:.3f} jobs/s, every output equal to numpy, "
+        f"launches {got} (= the jobs' sum); queue wait p95 "
+        f"{float(np.percentile([f['wait_s'] for f in deq], 95)) * 1e3:.3f} ms, per tenant "
+        f"{ {t: round(v * 1e3, 3) for t, v in p95.items()} } ms (max/min "
+        f"{max(p95.values()) / max(min(p95.values()), 1e-9):.3f}); cache hit rate {hit:.3f}; "
+        f"small jobs on {len(slices_used)} slices [{card}]")
+    svc.shutdown()
+
+    # 12.3 packed (8 slices) against one slice (slice_devices=8), both
+    # prewarmed, in turns (A B B A), the 12 small jobs alone.
+    services = {"8 slices": service(), "1 slice": service(slice_devices=8)}
+    for s, _ in services.values():
+        s.prewarm(sizes=[1 << 18, 1 << 19])
+        s.start()
+        run_window(s, small_jobs(9))  # one untimed window each
+    turns = []
+    for name in ("8 slices", "1 slice", "1 slice", "8 slices"):
+        for rep in range(2):
+            turns.append((name, run_window(services[name][0], small_jobs(10 + rep)) * 1e3))
+    med = {k: float(np.median([t for n, t in turns if n == k])) for k in services}
+    log(f"time serve 12 small jobs packed on 8 slice streams: {med['8 slices']:.3f} ms, on one "
+        f"slice: {med['1 slice']:.3f} ms (median of 4 in turns; x{med['1 slice'] / med['8 slices']:.3f}; "
+        f"runs {[(n, round(t, 3)) for n, t in turns]}) [{card}]")
+    for name, (s, jl) in services.items():
+        local = [e.fields["seconds"] * 1e3 for e in jl.events()
+                 if e.type == "phase_end" and e.fields["phase"] == "local_sort"]
+        log(f"  {name}: a small job's local_sort phase (upload, sort, download on its "
+            f"stream) median {float(np.median(local)):.3f} ms of {len(local)} [{card}]")
+        s.shutdown()
+
+    # 12.4 int64, float32 (NaN, ±0.0) and pallas small jobs.
+    svc, journal = service()
+    f = (rng.standard_normal(1 << 18) * 1e3).astype(np.float32)
+    f[rng.choice(f.size, 4096, replace=False)] = np.resize(
+        np.array([np.nan, -np.nan, -0.0, 0.0, np.inf, -np.inf], np.float32), 4096)
+    x64 = random_keys(rng, 1 << 18, np.int64)
+    reset()
+    tk = [svc.submit(x64, tenant="blue")[1], svc.submit(f, tenant="coral")[1]]
+    svc.start()
+    o64, of = tk[0].result(timeout=120), tk[1].result(timeout=120)
+    got = launched("serve int64 + float32 small jobs", keys_path)
+    if not (same_bits(o64, np.sort(x64)) and same_bits(of, ordered_float_reference(f))):
+        raise AssertionError("serve int64 / float32 small jobs differ")
+    log(f"serve 12.4 int64 and float32 (NaN/±0/±inf) small jobs of 2^18: numpy's bits, "
+        f"launches {got}")
+    svc.shutdown()
+    svc, journal = service(JobConfig(local_kernel="pallas", settle_delay_s=0.01))
+    x = random_keys(rng, 1 << 19, np.int32)
+    reset()
+    pl.fused_sort_small(x, "pallas")
+    want = launched("fused_sort_small pallas", {"tile_sort_kernel"})
+    reset()
+    svc.start()
+    out = svc.submit(x, tenant="acme")[1].result(timeout=120)
+    got = launched("serve pallas small job", {"tile_sort_kernel"})
+    if got != want or not same_bits(out, np.sort(x)):
+        raise AssertionError(f"serve pallas: launches {got} != {want}")
+    log(f"serve pallas small job 2^19 int32: S1 launches {got['tile_sort_kernel']} "
+        f"(= fused_sort_small's), numpy's bits")
+    svc.shutdown()
+
+    # 12.5 a big job under exchange="fused": one R1 launch.
+    svc, journal = service(JobConfig(exchange="fused", settle_delay_s=0.01))
+    reset()
+    t0 = time.perf_counter()
+    svc.start()
+    out = svc.submit(x32, tenant="acme")[1].result(timeout=300)
+    got = launched("serve big job fused", keys_path | {"ring_exchange_kernel"})
+    if got["ring_exchange_kernel"] != 1 or not same_bits(out, ref32):
+        raise AssertionError(f"serve big fused job: launches {got}")
+    log(f"serve 12.5 big job 2^26 int32 exchange=fused: numpy's bits, launches {got}, "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    svc.shutdown()
+
+    # 12.6 a slice loss: evicted, re-admitted, probed, exact; the time to
+    # recover (faulted minus healthy) in turns.
+    inj = FaultInjector()
+    svc = SortService(8, job=fast, serve=ServeConfig(), journal=(journal := EventLog()),
+                      injector=inj)
+    svc.prewarm(sizes=[1 << 19])
+    x = random_keys(rng, 1 << 19, np.int32)
+    refx = np.sort(x)
+    turns = []
+    for kind in ("healthy", "faulted", "faulted", "healthy") * 2:
+        if kind == "faulted":
+            inj.fail_once(0, "slice")
+        n_ev = len(journal)
+        t0 = time.perf_counter()
+        out = svc.submit(x, tenant="acme")[1].result(timeout=120)
+        turns.append((kind, (time.perf_counter() - t0) * 1e3))
+        types = [e.type for e in journal.events()[n_ev:]]
+        if not same_bits(out, refx):
+            raise AssertionError("serve slice loss: output differs")
+        if kind == "faulted" and not (types.index("job_evicted") < types.index("job_readmitted")
+                                      < types.index("job_done")):
+            raise AssertionError(f"serve slice loss: events {types}")
+    if svc.stats()["slices"] != 8 or svc.stats()["done"] != 8:
+        raise AssertionError(f"serve slice loss: {svc.stats()}")
+    med = {k: float(np.median([t for n, t in turns if n == k])) for k in ("healthy", "faulted")}
+    log(f"time to recover, serve slice loss (fail_once(0, 'slice'), 2^19 int32): "
+        f"{med['faulted'] - med['healthy']:.3f} ms (faulted {med['faulted']:.3f}, healthy "
+        f"{med['healthy']:.3f}, median of 4 in turns; the probe passed, 8 slices kept) [{card}]")
+    svc.shutdown()
+
+    # 12.7 a hang on a slice: the bounded wait evicts it at its bound.
+    hang_job = JobConfig(settle_delay_s=0.01, heartbeat_timeout_s=1.0, exec_allowance_floor_s=0.5,
+                         exec_allowance_keys_per_s=1e9, compile_grace_s=1.0)
+    inj = FaultInjector()
+    svc = SortService(8, job=hang_job, serve=ServeConfig(), journal=(journal := EventLog()),
+                      injector=inj)
+    svc.prewarm(sizes=[1 << 19])
+    svc.submit(x, tenant="acme")[1].result(timeout=120)  # warms slice 0's lane
+    inj.hang_once(0, "slice", seconds=4.0)
+    t0 = time.monotonic()
+    out = svc.submit(x, tenant="acme")[1].result(timeout=120)
+    took = time.monotonic() - t0
+    ev = [e for e in journal.events() if e.type == "job_evicted"]
+    bound = hang_job.heartbeat_timeout_s + hang_job.exec_allowance_floor_s + len(x) / 1e9
+    if not ev or "wait exceeded" not in ev[0].fields["reason"] or not same_bits(out, refx):
+        raise AssertionError(f"serve hang: evictions {[e.fields for e in ev]}")
+    first = ev[0].mono - t0
+    if first > bound + 0.5:
+        raise AssertionError(f"serve hang: evicted after {first:.3f} s, bound {bound:.3f} s")
+    log(f"serve 12.7 hang_once(0, 'slice', 4 s): evicted at {first:.3f} s (bound {bound:.3f} s), "
+        f"{len(ev)} eviction(s), exact result after {took:.3f} s")
+    svc.shutdown()
+
+    # 12.8 a re-form under the big job retires the dead worker's slice.
+    inj = FaultInjector()
+    svc = SortService(8, job=fast, serve=ServeConfig(), journal=(journal := EventLog()),
+                      injector=inj)
+    inj.fail_once(5, "spmd")
+    inj.fail_once(5, "probe")
+    out = svc.submit(x32, tenant="acme")[1].result(timeout=300)
+    retired = [(e.fields["slice"], e.fields.get("reason"))
+               for e in journal.events() if e.type == "slice_retired"]
+    if not same_bits(out, ref32) or retired != [(5, "mesh_reform")] or svc.stats()["slices"] != 7:
+        raise AssertionError(f"serve re-form: retired {retired}, {svc.stats()}")
+    out = svc.submit(x, tenant="blue")[1].result(timeout=120)
+    if not same_bits(out, refx):
+        raise AssertionError("serve after re-form: output differs")
+    log(f"serve 12.8 fail_once(5, 'spmd') under the 2^26 job: re-formed over 7, slice 5 retired "
+        f"(probe failed), 7 slices serve on, exact results")
+    svc.shutdown()
+
+    # 12.9 admission: the bounds, SLO shedding, weights.
+    svc, journal = service(max_queue_depth=3, max_tenant_inflight=2)
+    small = random_keys(rng, 1 << 16, np.int32)
+    reasons = [svc.submit(small, tenant=t)[0].reason for t in ("a", "a", "a", "b", "c", "d")]
+    if reasons != ["admitted", "admitted", "tenant_limit", "admitted", "queue_full", "queue_full"]:
+        raise AssertionError(f"serve admission verdicts {reasons}")
+    svc.shutdown()
+    svc, journal = service(slice_devices=8, slo_shed_ms=1.0, max_queue_depth=256,
+                           max_tenant_inflight=256)
+    svc.start()
+    tickets, shed = [], None
+    xs = random_keys(rng, (1 << 20) - 1, np.int32)
+    for _ in range(200):  # arrivals faster than one slice serves: the wait grows
+        v, tk = svc.submit(xs, tenant="acme")
+        if not v.admitted:
+            shed = v.reason
+            break
+        tickets.append(tk)
+        time.sleep(0.0002)
+    for tk in tickets:
+        tk.result(timeout=300)
+    time.sleep(0.05)
+    v, tk = svc.submit(small, tenant="acme")
+    if tk is not None:
+        tk.result(timeout=60)
+    if shed != "slo_shed" or not v.admitted:
+        raise AssertionError(f"serve slo_shed: shed {shed}, after the drain {v.reason}")
+    svc.shutdown()
+    svc, journal = service(slice_devices=8, tenant_weights={"acme": 2.0})
+    for _ in range(6):
+        for t in ("acme", "blue"):
+            svc.submit(random_keys(rng, 1 << 18, np.int32), tenant=t)
+    svc.start()
+    svc.shutdown()
+    order = [e.fields["tenant"] for e in journal.events() if e.type == "job_dequeued"]
+    if order[:6].count("acme") < 4:
+        raise AssertionError(f"serve weights acme=2: order {order}")
+    log(f"serve 12.9 admission verdicts {reasons}; slo_shed after {len(tickets)} queued jobs, "
+        f"admitted again once drained; weights acme=2 dequeue order {order}")
+
+    # 12.10 cli serve as a subprocess: a scrape, SIGINT with jobs queued.
+    # The first file (2^22 lines) is a big job on the whole mesh; the two
+    # small files behind it are read and queued while it runs, and the
+    # fourth prompt comes at once (3 jobs pending < --max-in-flight 4).
+    scratch = Path(tempfile.mkdtemp(prefix="serve_", dir=work))
+    try:
+        files = []
+        for i, n in enumerate((1 << 22, 1 << 12, 1 << 12)):
+            p = scratch / f"in{i}.txt"
+            p.write_text("".join(f"{v}\n" for v in random_keys(rng, n, np.int32).tolist()))
+            files.append(p)
+        out_path, jpath, errpath = scratch / "out.txt", scratch / "serve.jsonl", scratch / "err.txt"
+        t0 = time.perf_counter()
+        with open(errpath, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "dsort_tpu_torch.cli", "serve", "-o", str(out_path),
+                 "--max-in-flight", "4", "--metrics-port", "0", "--journal", str(jpath)],
+                cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                env={**os.environ, "PYTHONPATH": str(ROOT)}, text=True)
+        buf = []
+
+        def pump():
+            while ch := proc.stdout.read(1):
+                buf.append(ch)
+
+        threading.Thread(target=pump, daemon=True).start()
+        for i, p in enumerate(files):
+            proc.stdin.write(f"tenant={tenants[i % 3]} {p}\n")
+        proc.stdin.flush()  # stdin stays open: the REPL waits at its next prompt
+        deadline = time.monotonic() + 120
+        while "".join(buf).count("Enter the filename") < 4:
+            if time.monotonic() > deadline or proc.poll() is not None:
+                proc.kill()
+                raise AssertionError(f"cli serve: no 4th prompt; {errpath.read_text()[-2000:]}")
+            time.sleep(0.002)
+        port = int(re.search(r"127\.0\.0\.1:(\d+)/metrics", errpath.read_text()).group(1))
+        scrape = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=10).read().decode()
+        admitted = sum(float(ln.rsplit(" ", 1)[1]) for ln in scrape.splitlines()
+                       if ln.startswith("dsort_admissions_total{") and 'reason="admitted"' in ln)
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        wall = time.perf_counter() - t0
+        recs = EventLog.read_jsonl(str(jpath))
+        types = [r["type"] for r in recs]
+        drain = next(r for r in recs if r["type"] == "serve_drain")
+        want_bytes = "".join(f"{v}\n" for v in np.sort(np.loadtxt(files[-1], dtype=np.int64))
+                             .tolist()).encode()
+        if (rc != 0 or types[-1] != "serve_stop" or types.count("job_done") != 3
+                or out_path.read_bytes() != want_bytes or admitted != 3 or not drain["queued"]):
+            raise AssertionError(f"cli serve: rc {rc}, {types[-3:]}, {types.count('job_done')} "
+                                 f"done, admitted {admitted}, drain {drain}; "
+                                 f"{errpath.read_text()[-2000:]}")
+        log(f"serve 12.10 cli serve subprocess (--max-in-flight 4 --metrics-port 0 --journal): "
+            f"a 2^22-line big job then two 2^12-line files, 3 tenants; /metrics scraped on "
+            f"localhost (admitted {admitted:g}); SIGINT with {drain['queued']} queued + "
+            f"{drain['in_flight']} in flight: exit {rc}, serve_drain then serve_stop, 3 jobs done, "
+            f"output file = the last file's sort -n; {wall:.1f} s wall from the launch")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    # 12.11 the planner's exchange (autotune on) at 2^26 uniform int32 and
+    # 2^24 zipf(1.3) int64, from the journal's plan_decision.
+    from dsort_tpu_torch.utils.metrics import Metrics
+
+    auto = SampleSort(VirtualMesh(P), JobConfig(autotune=True))
+    picks = {}
+    for label, data, ref in (("2^26 uniform int32", x32, ref32), ("2^24 zipf(1.3) int64", z, refz)):
+        journal = EventLog()
+        reset()
+        out = auto.sort(data, Metrics(journal=journal))
+        (p,) = [e.fields for e in journal.events() if e.type == "plan_decision"]
+        if not same_bits(out, ref) or replay_decision("exchange", p["inputs"])[0] != p["chosen"]:
+            raise AssertionError(f"autotune {label}: {p}")
+        picks[label] = p["chosen"]
+        log(f"serve 12.11 autotune {label}: planned exchange={p['chosen']} (skew "
+            f"{p['inputs']['max_mean_ratio']}, fused_ok {p['inputs']['fused_ok']}), numpy's bits, "
+            f"launches {counts()}")
+
+    # 12.12 a real device-side assert in a child service.
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--serve-real-error-child"], cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+    try:
+        rep = json.loads(child.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError) as e:
+        raise AssertionError(f"serve real-error child printed no report (rc {child.returncode}): "
+                             f"{child.stdout[-2000:]} {child.stderr[-2000:]}") from e
+    if child.returncode != 3:
+        raise AssertionError(f"serve real-error child: rc {child.returncode}, {rep}")
+    log(f"serve 12.12 real device-side assert in a child service: outcomes {rep['outcomes']}, "
+        f"{len(rep['retired'])} slices retired {rep['retired']}, shutdown returned "
+        f"{rep['closed']} after {rep['seconds']} s, child exit {child.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"phase 12 serving: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3164,6 +3639,9 @@ def main() -> int:
     # 11. the batch and multi-process planes -------------------------------------
     batch_and_multiprocess(card, ss, reset, counts, launched, keys_path, work)
 
+    # 12. the serving plane -------------------------------------------------------
+    serving(card, x32, ref32, z, refz, reset, counts, launched, keys_path, work)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3173,4 +3651,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(real_error_child() if sys.argv[1:] == ["--real-error-child"] else main())
+    CHILDREN = {"--real-error-child": real_error_child,
+                "--serve-real-error-child": serve_real_error_child}
+    sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

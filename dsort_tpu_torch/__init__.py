@@ -8,10 +8,12 @@ nothing of ``dsort_tpu``.
 
 Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
 the fused small-job route, the task pool, local — and ``--device-resident``;
-the in-core ``dsort terasort``; ``dsort validate`` and ``dsort gen``):
+``dsort serve``; ``dsort batch``; ``dsort terasort`` and ``dsort external``;
+``dsort validate`` and ``dsort gen``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
-  config.py            ``JobConfig`` (the fields the sample sort reads)
+  config.py            ``JobConfig``, ``ServeConfig``, ``SortConfig`` and the
+                       reference's ``KEY=value`` conf files
   data/                ``partition`` / ``pad_to_shards``; int and TeraSort IO,
                        the seeded generators
   ops/float_order.py   order-preserving float <-> signed-int bijection
@@ -40,10 +42,15 @@ the in-core ``dsort terasort``; ``dsort validate`` and ``dsort gen``):
                        re-form), the task-pool ``Scheduler`` and
                        ``DeviceExecutor``, ``FaultInjector``, ``WorkerTable``,
                        the CUDA error classifier
+  serve/               ``SortService``: admission, weighted DRR, slices of the
+                       mesh on CUDA streams, the variant cache and prewarm
+  obs/                 telemetry and its metrics endpoint, SLO histograms,
+                       the flight recorder, the first-call ledger, the
+                       planner (``autotune``)
   utils/events.py      ``EventLog``: the JSONL event journal
-  cli.py               ``python -m dsort_tpu_torch.cli {run,terasort} IN -o OUT``
-                       (``run --mode spmd|taskpool|local``, ``run
-                       --device-resident``), ``validate``, ``gen``
+  cli.py               ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,
+                       external} ...`` (``run --mode spmd|taskpool|local``,
+                       ``run --device-resident``), ``validate``, ``gen``
 """
 
 from dsort_tpu_torch.config import ConfigError, JobConfig

@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,batch,terasort,external,validate,gen} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,validate,gen} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -33,6 +33,21 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   route and goes through `SpmdScheduler`, whose re-run restores what is on
   disk; ``taskpool`` persists its shards; ``--mode local`` and
   ``--device-resident`` warn and ignore the flags, as the reference does;
+- ``serve [-o OUT] [--mode M] [--max-in-flight N] [--metrics-port P]
+  [--prewarm [auto|all]] [--slice-devices S] [--queue-limit Q]
+  [--tenant-limit T] [--weights acme=2,...] [--slo-shed-ms MS]
+  [--journal J]``: the reference's job loop (``server.c:160-167``) on the
+  serving core (`serve.SortService`): each stdin line ``[tenant=NAME]
+  PATH`` is submitted through admission control and its sorted keys
+  written to ``OUT`` (``exit`` or end of input ends the loop); with
+  ``--max-in-flight 1`` (the default) each job is awaited, as the
+  reference's blocking loop, with more the jobs run concurrently (small
+  jobs on slices of the mesh, each on its own CUDA stream, big jobs on the
+  whole mesh).  ``--mode taskpool|local`` wraps that mode's sorter as the
+  service's runner.  SIGINT and SIGTERM drain the queued and in-flight
+  jobs, reject new ones (verdict ``shutting_down``), flush the journal
+  (``serve_drain``, ``serve_stop``) and exit 0.  ``--metrics-port``
+  serves the live telemetry on localhost (``/metrics``, ``/json``);
 - ``batch INPUT... --outdir DIR [--dp N] [--dtype D] [--checkpoint-dir C]
   [--journal J]``: many one-int-per-line files as one `BatchSampleSort.sort`
   call (size buckets, each one program over its jobs), each written to
@@ -59,10 +74,18 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   ``--mesh``, as the reference's do); resumable at run or (wave, run)
   granularity under ``--spill-dir`` / ``--job-id``.
 
-Both take ``--kernel`` (`JobConfig.local_kernel`, ``radix`` included),
-``--merge-kernel``, ``--exchange`` (``hier`` included), ``--hier-hosts``,
-``--redundancy`` and ``--redundancy-mode`` (`JobConfig`'s fields of those
-names), as the JAX package's common flags do.  Two
+The sorting subcommands take ``--kernel`` (`JobConfig.local_kernel`,
+``radix`` included), ``--merge-kernel``, ``--exchange`` (``hier``
+included), ``--hier-hosts``, ``--redundancy`` and ``--redundancy-mode``
+(`JobConfig`'s fields of those names), as the JAX package's common flags
+do.  ``run``, ``serve`` and ``batch`` load their config as the
+reference's ``common()`` does (`_load_config`): ``--conf FILE`` (the
+reference's ``KEY=value`` keys, `config.SortConfig.from_mapping`), then
+the flags, then the planner — ``--no-autotune`` wins, then a conf
+``AUTOTUNE=``, else autotune is on (`obs.plan`: the exchange planned per
+dispatch, journaled ``plan_decision``); a knob flag actually given joins
+``JobConfig.explicit``, so the planner journals ``plan_override`` and
+yields.  They also take ``--tenant`` and ``--flight-dir``.  Two
 host tools run no sort and touch no device, as ``dsort``'s do:
 
 - ``validate INPUT [--against FILE] [--terasort|--binary] [--dtype D]``:
@@ -90,6 +113,7 @@ from dsort_tpu_torch.config import (
     _REDUNDANCY_MODES,
     ExternalConfig,
     JobConfig,
+    SortConfig,
 )
 from dsort_tpu_torch.utils.logging import get_logger
 
@@ -123,7 +147,8 @@ def _common(p: argparse.ArgumentParser, default_output: str) -> None:
 
 def _knobs(p: argparse.ArgumentParser) -> None:
     """The mesh, exchange and kernel flags every sorting subcommand takes."""
-    p.add_argument("--workers", type=int, default=8, help="virtual mesh shards")
+    p.add_argument("--workers", type=int, default=None,
+                   help="virtual mesh shards (default 8; conf NUM_WORKERS)")
     p.add_argument("--exchange", choices=_EXCHANGES, default=None,
                    help="bucket exchange schedule (default: JobConfig's); hier = the "
                         "two-level schedule: intra-host aggregation, one transfer per "
@@ -139,11 +164,26 @@ def _knobs(p: argparse.ArgumentParser) -> None:
     p.add_argument("--redundancy-mode", choices=_REDUNDANCY_MODES, default=None,
                    help="how r > 1 ships its premium: replicate (r-1 full bucket "
                         "copies) or parity (XOR at r=2, GF(256) P+Q at r>=3)")
-    p.add_argument("--kernel", choices=_LOCAL_KERNELS, default="auto", help="local sort kernel")
-    p.add_argument("--merge-kernel", choices=_MERGE_KERNELS, default="auto",
+    p.add_argument("--kernel", choices=_LOCAL_KERNELS, default=None,
+                   help="local sort kernel (default auto)")
+    p.add_argument("--merge-kernel", choices=_MERGE_KERNELS, default=None,
                    help="post-exchange combine (default auto: block_merge wherever "
                         "the block kernel applies)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+
+
+def _config_flags(p: argparse.ArgumentParser) -> None:
+    """The config flags of the reference's ``common()`` (`_load_config`)."""
+    p.add_argument("--conf", help="KEY=value conf file (the reference's keys accepted)")
+    p.add_argument("--tenant", help="tenant label on the job's events and SLO histograms "
+                                    "(default 'default')")
+    p.add_argument("--flight-dir",
+                   help="flight recorder directory: any recovery path dumps a postmortem "
+                        "bundle here (ring + config + worker state + counters)")
+    p.add_argument("--no-autotune", action="store_true",
+                   help="disable the planner: every knob rides its flag/conf/default value "
+                        "(conf AUTOTUNE=0; the planner is otherwise on, and explicit flags "
+                        "win over it either way)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -151,8 +191,10 @@ def _parser() -> argparse.ArgumentParser:
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="sort a one-int-per-line text file")
     _common(run, "output.txt")
-    run.add_argument("--dtype", default="int32",
-                     help="key dtype of the file (int32, int64, uint32, uint64, float32, ...)")
+    _config_flags(run)
+    run.add_argument("--dtype", default=None,
+                     help="key dtype of the file (int32, int64, uint32, uint64, float32, ...; "
+                          "default int32, conf KEY_DTYPE)")
     run.add_argument("--mode", choices=MODES, default="spmd",
                      help="spmd (fused route under 2^20 keys, else the SPMD "
                           "scheduler), taskpool or local")
@@ -166,15 +208,57 @@ def _parser() -> argparse.ArgumentParser:
                      help="persist per-shard/range progress here; a re-run of the same "
                           "input resumes instead of re-sorting")
     run.add_argument("--job-id", help="checkpoint namespace (default: input basename)")
+    serve = sub.add_parser("serve", help="the job loop: file names on stdin, served by the "
+                                         "multi-tenant core")
+    serve.add_argument("-o", "--output", default=None,
+                       help="where each job's sorted keys go (default output.txt, conf "
+                            "OUTPUT_PATH)")
+    _knobs(serve)
+    _config_flags(serve)
+    serve.add_argument("--dtype", default=None, help="key dtype of the files (default int32)")
+    serve.add_argument("--mode", choices=MODES, default="spmd",
+                       help="spmd (slices + the whole mesh), or a taskpool / local runner")
+    serve.add_argument("--journal", default=None,
+                       help="write the session's structured event journal (JSONL) here, "
+                            "flushed after every job")
+    serve.add_argument("--checkpoint-dir",
+                       help="persist each job's progress under its file's basename; a "
+                            "checkpointed job takes the whole mesh")
+    serve.add_argument("--job-id", help="ignored by serve: each file checkpoints under its "
+                                        "own name")
+    serve.add_argument("--metrics-port", type=int,
+                       help="serve the live telemetry on this localhost port (0 = "
+                            "ephemeral; Prometheus text at /metrics, JSON at /json)")
+    serve.add_argument("--max-in-flight", type=int, default=1,
+                       help="jobs in flight at once (default 1 = await each job, the "
+                            "reference's blocking loop; more = concurrent slices)")
+    serve.add_argument("--prewarm", nargs="?", const="auto", choices=("auto", "all"),
+                       help="run the fused rungs once on every slice at startup: 'auto' "
+                            "the planner's predicted set (the full ladder on a cold "
+                            "start), 'all' the exhaustive ladder (conf SERVE_PREWARM)")
+    serve.add_argument("--slice-devices", type=int,
+                       help="virtual workers per small-job slice (default 1: 8 slices, "
+                            "8 streams)")
+    serve.add_argument("--queue-limit", type=int,
+                       help="admission control: most jobs queued service-wide")
+    serve.add_argument("--tenant-limit", type=int,
+                       help="admission control: most queued + running jobs a tenant")
+    serve.add_argument("--weights", help="fair-scheduler tenant weights, e.g. acme=2,blue=1 "
+                                         "(unlisted tenants weigh 1)")
+    serve.add_argument("--slo-shed-ms", type=float,
+                       help="reject (verdict 'slo_shed') while a tenant's live p95 queue "
+                            "wait is over this many ms with work still queued")
     batch = sub.add_parser("batch", help="sort many one-int-per-line files as one batched "
                                           "program (the dp axis)")
     batch.add_argument("inputs", nargs="+")
     batch.add_argument("--outdir", required=True, help="each input is written to "
                                                        "OUTDIR/<its basename>")
-    batch.add_argument("--dp", type=int, default=1,
-                       help="job slots a size bucket is padded to (the reference's dp axis)")
+    batch.add_argument("--dp", type=int, default=None,
+                       help="job slots a size bucket is padded to (the reference's dp axis; "
+                            "default 1, conf DP)")
     _knobs(batch)
-    batch.add_argument("--dtype", default="int32", help="key dtype of the files")
+    _config_flags(batch)
+    batch.add_argument("--dtype", default=None, help="key dtype of the files (default int32)")
     batch.add_argument("--journal", default=None,
                        help="write the batch's structured event journal (JSONL) here")
     batch.add_argument("--checkpoint-dir",
@@ -269,6 +353,54 @@ def _job_id_for(path: str, explicit: str | None) -> str:
     return jid if jid.strip(".") else "job"
 
 
+def _load_config(args) -> SortConfig:
+    """The conf file, then the flags, then the planner, field by field.
+
+    Flags override with ``dataclasses.replace`` on the loaded config, so a
+    flag never drops conf settings it does not know about.  Autotune:
+    ``--no-autotune`` wins, then an explicit conf ``AUTOTUNE=``, else on
+    (the library's `JobConfig` default stays off).  A knob flag actually
+    given (``--exchange``, ``--redundancy``, ``--redundancy-mode``,
+    ``--slice-devices``, ``--prewarm all``) joins ``JobConfig.explicit``,
+    so the planner journals a ``plan_override`` instead of deciding.
+    """
+    import dataclasses
+
+    from dsort_tpu_torch.config import load_conf_file
+
+    conf_map = load_conf_file(args.conf) if getattr(args, "conf", None) else {}
+    cfg = SortConfig.from_mapping(conf_map) if conf_map else SortConfig()
+    job_over: dict = {}
+    mesh_over: dict = {}
+    if getattr(args, "workers", None):
+        mesh_over["num_workers"] = args.workers
+    for flag, field in (("dtype", "key_dtype"), ("kernel", "local_kernel"),
+                        ("merge_kernel", "merge_kernel"), ("exchange", "exchange"),
+                        ("hier_hosts", "hier_hosts"), ("redundancy", "redundancy"),
+                        ("redundancy_mode", "redundancy_mode"),
+                        ("checkpoint_dir", "checkpoint_dir"), ("tenant", "tenant"),
+                        ("flight_dir", "flight_recorder_dir")):
+        if getattr(args, flag, None):
+            job_over[field] = getattr(args, flag)
+    if getattr(args, "no_autotune", False):
+        job_over["autotune"] = False
+    elif "AUTOTUNE" not in conf_map:
+        job_over["autotune"] = True
+    explicit = set(cfg.job.explicit)
+    for flag in ("exchange", "redundancy", "redundancy_mode", "slice_devices"):
+        if getattr(args, flag, None):
+            explicit.add(flag)
+    if getattr(args, "prewarm", None) == "all":
+        explicit.add("prewarm")
+    if explicit != set(cfg.job.explicit):
+        job_over["explicit"] = tuple(sorted(explicit))
+    if job_over:
+        cfg = dataclasses.replace(cfg, job=dataclasses.replace(cfg.job, **job_over))
+    if mesh_over:
+        cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, **mesh_over))
+    return cfg
+
+
 def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
     """The sort callable ``sorter(data, metrics, job_id=None)`` of one mode;
     builds its scheduler (and so resolves the device) at once."""
@@ -310,6 +442,7 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
                 try:
                     metrics.event(
                         "job_start", mode="fused", n_keys=len(data), job_id=job_id,
+                        tenant=job.tenant,
                     )
                     # The bounded wait covers the fused program's completion
                     # barrier (the download inside fused_sort_small): a
@@ -384,7 +517,9 @@ def _make_sorter(job: JobConfig, mode: str, workers: int = 8, device=None):
 
         def local_sorter(data, metrics, job_id=None):
             # No scheduler journals this mode's job boundaries: do it here.
-            metrics.event("job_start", mode="local", n_keys=len(data), job_id=job_id)
+            metrics.event(
+                "job_start", mode="local", n_keys=len(data), job_id=job_id, tenant=job.tenant,
+            )
             out = fused_sort_small(data, job.local_kernel, metrics, device=dev)
             metrics.event("job_done", n_keys=len(data), counters=dict(metrics.counters))
             return out
@@ -443,7 +578,7 @@ def _run(args, job: JobConfig) -> int:
 
     journal = EventLog() if args.journal else None
     try:
-        keys = ingest.read_ints_file(args.input, args.dtype)
+        keys = ingest.read_ints_file(args.input, job.key_dtype)
         metrics = Metrics(journal=journal)
         try:
             out, ok = sorter(keys, metrics)
@@ -464,6 +599,162 @@ def _run(args, job: JobConfig) -> int:
     if not ok:
         log.error("on-device validation FAILED for %s", args.input)
         return 1
+    return 0
+
+
+def _sigterm_to_interrupt(signum, frame):
+    """SIGTERM handler of ``serve``: the same graceful path as Ctrl-C
+    (drain, reject new admissions, flush the journal, exit 0)."""
+    raise KeyboardInterrupt
+
+
+def _make_serve_service(args, cfg: SortConfig, journal, telemetry):
+    """The `serve.SortService` behind ``serve``: spmd gets slices and the
+    whole mesh; taskpool / local wrap their sorter as the service's runner,
+    with the same admission, fairness and shutdown."""
+    import dataclasses
+
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.serve.fair import parse_weights
+
+    serve_over: dict = {}
+    for flag, field in (("slice_devices", "slice_devices"), ("queue_limit", "max_queue_depth"),
+                        ("tenant_limit", "max_tenant_inflight"), ("slo_shed_ms", "slo_shed_ms")):
+        if getattr(args, flag, None):
+            serve_over[field] = getattr(args, flag)
+    if args.weights:
+        serve_over["tenant_weights"] = parse_weights(args.weights)
+    if args.prewarm == "all":
+        serve_over["prewarm_policy"] = "all"
+    serve_cfg = dataclasses.replace(cfg.serve, **serve_over)
+    workers = cfg.mesh.num_workers or 8
+    kwargs = dict(job=cfg.job, serve=serve_cfg, telemetry=telemetry, journal=journal,
+                  journal_path=args.journal)
+    if args.mode == "spmd":
+        service = SortService(workers, args.device, **kwargs)
+    else:
+        service = SortService(
+            runner=_make_sorter(cfg.job, args.mode, workers, args.device), **kwargs
+        )
+    if args.prewarm or serve_cfg.prewarm:
+        log.info("variant cache prewarmed: %d rung(s)", service.prewarm())
+    return service
+
+
+def _parse_serve_line(line: str, default_tenant: str) -> tuple[str, str]:
+    """``[tenant=NAME] path`` -> (tenant, path)."""
+    name = line.strip()
+    tenant = default_tenant
+    if name.startswith("tenant="):
+        head, _, rest = name.partition(" ")
+        tenant = head[len("tenant="):]
+        name = rest.strip()
+    return tenant, name
+
+
+def _serve(args, cfg: SortConfig) -> int:
+    """``serve``: the reference's interactive loop on the serving core."""
+    import signal
+
+    from dsort_tpu_torch.utils.events import EventLog
+
+    journal = EventLog() if args.journal else None
+    if args.job_id and cfg.job.checkpoint_dir:
+        log.warning("serve ignores --job-id: each input file checkpoints under its own name")
+    telemetry = server = None
+    if args.metrics_port is not None:
+        from dsort_tpu_torch.obs import MetricsServer, Telemetry
+
+        telemetry = Telemetry()
+        server = MetricsServer(telemetry, port=args.metrics_port)
+        log.info("metrics endpoint: %s", server.url)
+    old_term = None
+    try:
+        service = _make_serve_service(args, cfg, journal, telemetry)
+        try:
+            old_term = signal.signal(signal.SIGTERM, _sigterm_to_interrupt)
+        except ValueError:
+            pass  # not the main thread: the Ctrl-C path still holds
+        return _serve_loop(args, cfg, service)
+    finally:
+        if old_term is not None:
+            signal.signal(signal.SIGTERM, old_term)
+        if server is not None:
+            server.close()
+
+
+def _serve_loop(args, cfg: SortConfig, service) -> int:
+    from dsort_tpu_torch.data import ingest
+
+    out_path = args.output or cfg.output_path
+    max_in_flight = max(args.max_in_flight or 1, 1)
+    pending: list[tuple[str, float, object]] = []  # (name, t0, ticket)
+
+    def reap(limit: int) -> None:
+        """Write out finished tickets in order; block on the oldest only
+        while ``limit`` or more jobs are in flight."""
+        while pending:
+            name, t0, ticket = pending[0]
+            if len(pending) < limit and not ticket.done():
+                break
+            pending.pop(0)
+            try:
+                out = ticket.result()
+            except Exception as e:  # a bad job must not kill the server
+                log.error("job failed (%s): %s", name, e)
+                continue
+            try:
+                ingest.write_ints_file(out_path, out)
+            except OSError as e:  # nor an unwritable output path
+                log.error("result write failed (%s): %s", name, e)
+                continue
+            log.info(
+                "sorted %d keys in %.1f ms (%s, tenant %s) -> %s | %s",
+                len(out), (time.perf_counter() - t0) * 1e3, name, ticket.tenant, out_path,
+                dict(ticket.metrics.counters),
+            )
+
+    interrupted = False
+    while True:
+        try:
+            line = input("Enter the filename to sort (or 'exit' to quit): ")
+        except EOFError:
+            break
+        except KeyboardInterrupt:
+            # SIGINT, and SIGTERM through `_sigterm_to_interrupt`: drain below.
+            print()
+            interrupted = True
+            break
+        tenant, name = _parse_serve_line(line, cfg.job.tenant)
+        if not name:
+            continue
+        if name == "exit":
+            break
+        try:
+            data = ingest.read_ints_file(name, cfg.job.key_dtype)
+        except Exception as e:  # unreadable input must not kill the server
+            log.error("job failed (%s): %s", name, e)
+            continue
+        jid = _job_id_for(name, None) if cfg.job.checkpoint_dir else None
+        verdict, ticket = service.submit(data, tenant=tenant, job_id=name, ckpt_job_id=jid)
+        if not verdict.admitted:
+            log.error(
+                "job NOT admitted (%s): %s (queue depth %d, tenant depth %d)",
+                name, verdict.reason, verdict.queue_depth, verdict.tenant_depth,
+            )
+            continue
+        pending.append((name, time.perf_counter(), ticket))
+        # One job at a time by default (the reference's blocking loop); the
+        # service flushes the journal after every completion.
+        reap(limit=max_in_flight)
+    if interrupted:
+        st = service.stats()
+        log.warning(
+            "shutting down: draining %d queued + %d in-flight job(s); new admissions are "
+            "rejected with verdict 'shutting_down'", st["queued"], st["in_flight"],
+        )
+    service.shutdown(drain=True)
+    reap(limit=1)
     return 0
 
 
@@ -658,7 +949,7 @@ def _batch(args, job: JobConfig) -> int:
     os.makedirs(args.outdir, exist_ok=True)
 
     def run(metrics):
-        jobs = [ingest.read_ints_file(p, args.dtype) for p in args.inputs]
+        jobs = [ingest.read_ints_file(p, job.key_dtype) for p in args.inputs]
         outs = bss.sort(jobs, metrics=metrics, job_ids=job_ids)
         for src, out in zip(args.inputs, outs):
             ingest.write_ints_file(os.path.join(args.outdir, os.path.basename(src)), out)
@@ -676,14 +967,18 @@ def main(argv=None) -> int:
              "redundancy": args.redundancy, "redundancy_mode": args.redundancy_mode}
     if args.cmd == "external":
         return _external(args)
-    if args.cmd in ("run", "batch") and args.checkpoint_dir:
-        knobs["checkpoint_dir"] = args.checkpoint_dir
-    job = JobConfig(local_kernel=args.kernel, merge_kernel=args.merge_kernel,
-                    **{k: v for k, v in knobs.items() if v})
-    if args.cmd == "run":
-        return _run(args, job)
-    if args.cmd == "batch":
-        return _batch(args, job)
+    if args.cmd in ("run", "batch", "serve"):
+        cfg = _load_config(args)
+        args.workers = cfg.mesh.num_workers or 8
+        if args.cmd == "run":
+            return _run(args, cfg.job)
+        if args.cmd == "serve":
+            return _serve(args, cfg)
+        args.dp = args.dp or cfg.mesh.dp
+        return _batch(args, cfg.job)
+    knobs.update(local_kernel=args.kernel, merge_kernel=args.merge_kernel)
+    job = JobConfig(**{k: v for k, v in knobs.items() if v})
+    args.workers = args.workers or 8
     if args.external:
         return _terasort_external(args, job)
     from dsort_tpu_torch.data import ingest

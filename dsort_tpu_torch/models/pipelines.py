@@ -13,19 +13,25 @@ Counterpart of ``dsort_tpu/models/pipelines.py``:
   `VirtualMesh`: one upload of the ``(P, cap)`` shards, one batched sort of
   every row, one download, a host k-way merge.
 
-Not ported: the reference's ``SPMD_CONTRACT`` dict (it feeds the JAX
-package's SPMD lint, which reads JAX programs), and the compile ledger
-(``instrument_jit`` / ``LEDGER`` of ``obs/prof``): the journal of a fused
-job carries no ``variant_compiled`` event.
+`_fused_small_fn` is the fused route's per-rung variant — what the serving
+layer's variant cache (`serve.variants`) holds and prewarms — and records
+its first call per stream into `obs.prof`'s ledger.  `fused_sort_small`
+(``cli run``'s route) calls the padded sort directly and records nothing:
+its journal carries no ``variant_compiled`` event.  Not ported: the
+reference's ``SPMD_CONTRACT`` dict (it feeds the JAX package's SPMD lint,
+which reads JAX programs).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from dsort_tpu_torch.data.partition import pad_to_shards
 from dsort_tpu_torch.device import device_scope, resolve_device
+from dsort_tpu_torch.obs.prof import instrument_first_call
 from dsort_tpu_torch.ops.float_order import (
     from_signed_keys,
     sort_float_keys_via_uint,
@@ -78,6 +84,26 @@ def pad_for_fused(data: np.ndarray) -> np.ndarray:
     buf = np.empty(pad_rung(len(data)), data.dtype)
     buf[: len(data)] = data
     return buf
+
+
+@functools.lru_cache(maxsize=64)
+def _fused_small_fn(n_pad: int, dtype_str: str, kernel: str):
+    """The fused route's program for one rung: ``fn(x, count)`` sorts the
+    device row ``x`` of ``n_pad`` keys whose first ``count`` are real
+    (`sort_padded` masks the tail to the dtype's sentinel) through
+    ``kernel`` and returns the sorted row in ``x``'s dtype, on the current
+    stream.  It holds no device buffer, so slices on their own streams
+    share one variant safely.  Its first call per stream is recorded in
+    the ledger under the variant cache's key, ``("fused", n_pad, dtype_str,
+    kernel)``."""
+
+    def sort_row(x: torch.Tensor, count: int) -> torch.Tensor:
+        out, _ = sort_padded(to_signed_keys(x), count, kernel)
+        return from_signed_keys(out, x.dtype)
+
+    return instrument_first_call(
+        sort_row, key_fn=lambda *a: ("fused", n_pad, dtype_str, kernel)
+    )
 
 
 def fused_sort_small(

@@ -405,7 +405,24 @@ class ExternalWaveSort:
         fdt = np.dtype(data.dtype) if is_float_np_dtype(data.dtype) else None
         storage = ordered_uint_dtype(fdt) if fdt is not None else np.dtype(data.dtype)
         mapper = float_to_ordered_uint if fdt is not None else None
-        metrics.event("job_start", mode="wave_external", n_keys=n, job_id=self.job_id)
+        metrics.event(
+            "job_start", mode="wave_external", n_keys=n, job_id=self.job_id,
+            tenant=self.job.tenant,
+        )
+        if self.job.autotune:
+            # The wave size from the journal's hbm_watermark ledger instead
+            # of the hand-set wave_elems (`obs.plan`), journaled before the
+            # manifest sync, so a resized resume restarts cleanly under the
+            # manifest's wave_elems check.
+            from dsort_tpu_torch.obs.plan import planned_wave_elems
+
+            records = (
+                [e.to_dict() for e in metrics.journal.events()]
+                if metrics.journal is not None else []
+            )
+            self.wave_elems = planned_wave_elems(
+                self.job, self.wave_elems, storage.itemsize, records, metrics,
+            )
         num_waves = -(-n // self.wave_elems)
         with timer.phase("splitter_sample"):
             splitters = sample_global_splitters(data, n, self.num_workers, mapper=mapper)

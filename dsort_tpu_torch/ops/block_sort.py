@@ -54,6 +54,8 @@ launches per kernel, apart for those that carried the rank plane
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from dsort_tpu_torch.ops.errors import KernelLaunchError
@@ -197,7 +199,8 @@ def _launch(name: str, x: torch.Tensor, r: torch.Tensor | None, *args) -> None:
         err = fn(x.data_ptr(), rp, x.shape[0], x.shape[1], *args, stream)
     if err != 0:
         raise KernelLaunchError(name, err)
-    _LAUNCHES[f"{name}_kernel" + ("" if r is None else RANK)] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES[f"{name}_kernel" + ("" if r is None else RANK)] += 1
 
 
 def _route(x: torch.Tensor) -> bool:
@@ -266,6 +269,7 @@ WRAPPERS = {
 #: Suffix of a launch count taken with the rank plane.
 RANK = "+rank"
 _LAUNCHES = {name + plane: 0 for name in WRAPPERS for plane in ("", RANK)}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:

@@ -36,6 +36,8 @@ anything else raises.  `launch_counts` counts the launches per kernel;
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from dsort_tpu_torch.ops.bitonic import merge_sorted_runs, merge_sorted_runs_kv
@@ -55,6 +57,7 @@ _MAX_CLUSTER = 8
 _SORT_SHARE = 4096
 
 _LAUNCHES = {"tile_sort_kernel": 0, "tile_sort_kv_kernel": 0, "radix_histogram_kernel": 0}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -183,7 +186,8 @@ def tile_sort(x: torch.Tensor, tile_rows: int = 256) -> torch.Tensor:
         )
     if err != 0:
         raise KernelLaunchError("tile_sort", err)
-    _LAUNCHES["tile_sort_kernel"] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES["tile_sort_kernel"] += 1
     return x
 
 
@@ -210,7 +214,8 @@ def tile_sort_kv(
         )
     if err != 0:
         raise KernelLaunchError("tile_sort_kv", err)
-    _LAUNCHES["tile_sort_kv_kernel"] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES["tile_sort_kv_kernel"] += 1
     return x, v
 
 
@@ -238,7 +243,8 @@ def radix_histogram(
         )
     if err != 0:
         raise KernelLaunchError("radix_histogram", err)
-    _LAUNCHES["radix_histogram_kernel"] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES["radix_histogram_kernel"] += 1
     return out
 
 

@@ -38,6 +38,7 @@ launches (``ring_exchange_kernel+kv`` for the records variant).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -52,6 +53,7 @@ _MAX_SHARDS = 128  # csrc/ring_exchange.cu kMaxShards
 _KEY_DTYPES = (torch.int32, torch.int64)
 
 _LAUNCHES = {"ring_exchange_kernel": 0, "ring_exchange_kernel+kv": 0, "gather_rows_kernel": 0}
+_LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -237,7 +239,8 @@ def ring_exchange(xs, starts, lens, caps, payload=None):
         )
     if err != 0:
         raise KernelLaunchError("ring_exchange", err)
-    _LAUNCHES["ring_exchange_kernel" + ("" if payload is None else "+kv")] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES["ring_exchange_kernel" + ("" if payload is None else "+kv")] += 1
     return wk, wt, wv
 
 
@@ -262,7 +265,8 @@ def gather_rows(ws: torch.Tensor, tags: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise KernelLaunchError("gather_rows", err)
-    _LAUNCHES["gather_rows_kernel"] += 1
+    with _LAUNCH_LOCK:  # slices launch from several threads
+        _LAUNCHES["gather_rows_kernel"] += 1
     return out
 
 

@@ -514,9 +514,32 @@ class SampleSort:
         scalars in one small device-to-host copy, which is also the
         completion barrier — or, after a straggler serve, the host ranges
         (signed carrier) in place of the rows.
+
+        With ``job.autotune`` on, the schedule is planned here per dispatch
+        from a skew probe of this job's keys (`obs.plan.planned_exchange`:
+        ``plan_decision``), unless it was set explicitly (``exchange=`` or
+        a ``JobConfig.explicit`` value: ``plan_override``).  The fused ring
+        kernel exists on the card, so ``fused`` is a candidate when the
+        mesh is on a CUDA device.
         """
         red = self._resolve_redundancy(redundancy)
         mode = self._resolve_redundancy_mode(redundancy_mode)
+        if self.job.autotune:
+            from dsort_tpu_torch.obs.plan import planned_exchange
+            from dsort_tpu_torch.parallel.exchange import _process_count
+
+            # Only a real topology signal arms hier: a requested grouping
+            # or a process group of several ranks, never the simulated
+            # 2-host default.
+            want = self.job.hier_hosts
+            hosts = (
+                resolve_hier_hosts(want, self.num_workers)
+                if want or _process_count() > 1 else 0
+            )
+            exchange = planned_exchange(
+                self.job, data, self.num_workers, metrics, call_value=exchange,
+                fused_ok=self.mesh.device.type == "cuda", redundancy=red, hosts=hosts,
+            )
         exch = self._resolve_exchange(exchange)
         if red > 1 and exch != "ring":
             log.warning(

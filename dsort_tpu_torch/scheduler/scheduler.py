@@ -70,8 +70,14 @@ the missing ones (``shuffle_ranges_restored``, ``shuffle_resort_keys``),
 or restores the whole shuffle (``shuffle_phase_restores``).  An attempt
 abandoned by a lapsed wait checks its cancel event before every write.
 Float keys of both schedulers ride as the reference's ordered uints, the
-carrier their stores hold.  Not ported yet: the flight recorder
-(``obs.flight``): neither scheduler writes flight bundles.
+carrier their stores hold.
+
+With ``JobConfig.flight_recorder_dir`` both schedulers keep a flight
+recorder (`obs.flight.FlightRecorder`, attached to every job's `Metrics`)
+that dumps a postmortem bundle whenever a recovery path fires: a re-form,
+a reassignment, a capacity retry, a transient retry, a checkpoint
+restore, a coded recovery.  `SpmdScheduler(telemetry=...)` taps every
+job's `Metrics` into an `obs.Telemetry` (the live metrics endpoint).
 """
 
 from __future__ import annotations
@@ -190,6 +196,20 @@ def _size_bucket(n: int) -> int:
     return 1 << max(int(n - 1).bit_length(), 0) if n > 1 else 1
 
 
+def _make_flight_recorder(job: JobConfig, state_fn):
+    """A `FlightRecorder` when the job configures one, else None — one
+    builder for both schedulers, so the bundle contract (config snapshot,
+    ring size, state callback) cannot drift between them."""
+    if not job.flight_recorder_dir:
+        return None
+    from dsort_tpu_torch.obs.flight import FlightRecorder
+
+    return FlightRecorder(
+        job.flight_recorder_dir, ring_size=job.flight_ring_size, state_fn=state_fn,
+        config=job,
+    )
+
+
 def _sort_kwargs(exchange, redundancy=None, redundancy_mode=None) -> dict:
     """Per-call knob kwargs, omitted when unset: `None` means "JobConfig
     decides" and needs no plumbing — wrappers around SampleSort.sort (fault
@@ -259,6 +279,14 @@ class Scheduler:
         executor.table = self.table
         # The job's kernel choice wins over the executor's default.
         executor.kernel = self.job.local_kernel
+        self.flight = _make_flight_recorder(
+            self.job,
+            lambda: {
+                "mode": "taskpool",
+                "workers": executor.num_workers,
+                "live": self.table.live_workers(),
+            },
+        )
         # (worker, shape, dtype, kernel) combos that completed once on that
         # worker: each virtual worker keeps its own cold windows, as each of
         # the reference's devices compiles its own executable.  On the card
@@ -417,9 +445,14 @@ class Scheduler:
             # Workers, the store and the host merge see ordered uints only.
             return sort_float_keys_via_uint(self.run_job, data, metrics, job_id)
         metrics = metrics if metrics is not None else Metrics()
+        if self.flight is not None:
+            self.flight.attach(metrics)
         timer = PhaseTimer(metrics)
         w = self.executor.num_workers
-        metrics.event("job_start", mode="taskpool", n_keys=len(data), job_id=job_id)
+        metrics.event(
+            "job_start", mode="taskpool", n_keys=len(data), job_id=job_id,
+            tenant=self.job.tenant,
+        )
         self.table.revive_all()  # server.c:222,278
         ckpt = None
         if self.job.checkpoint_dir and job_id:
@@ -486,6 +519,7 @@ class SpmdScheduler:
         device=None,
         job: JobConfig | None = None,
         injector: FaultInjector | None = None,
+        telemetry=None,
     ):
         if num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
@@ -494,7 +528,19 @@ class SpmdScheduler:
         self.device = resolve_device(device)
         self.job = job or JobConfig()
         self.injector = injector
+        #: Optional `obs.Telemetry`: every job's Metrics is tapped into it,
+        #: so the live endpoint sees this scheduler's counters, phases and
+        #: per-tenant SLO stages.
+        self.telemetry = telemetry
         self.table = WorkerTable(len(self.devices), self.job.heartbeat_timeout_s)
+        self.flight = _make_flight_recorder(
+            self.job,
+            lambda: {
+                "mode": "spmd",
+                "devices": list(self.devices),
+                "live": self.table.live_workers(),
+            },
+        )
         self._sorters: dict[tuple, SampleSort] = {}  # live workers -> SampleSort
         # (lane key, size bucket) combos that completed once: their kernels
         # are built, so later waits drop the compile grace.
@@ -583,9 +629,7 @@ class SpmdScheduler:
         def probe():
             if self.injector is not None:
                 self.injector.check(idx, "probe")
-            with device_scope(self.device):
-                y = torch.zeros(8, dtype=torch.int32).to(self.device)
-                return int(y.cpu().sum()) == 0
+            return self._round_trip()
 
         box, done, abandoned = _lane_for_device(self.device, idx).submit(probe)
         if not done.wait(timeout=self.job.heartbeat_timeout_s):
@@ -595,6 +639,24 @@ class SpmdScheduler:
             return False
         self.table.heartbeat(idx)
         return True
+
+    def _round_trip(self) -> bool:
+        """8 ints up to the card and back: the probes' device call."""
+        with device_scope(self.device):
+            y = torch.zeros(8, dtype=torch.int32).to(self.device)
+            return int(y.cpu().sum()) == 0
+
+    def probe_card(self) -> bool:
+        """The card's own liveness: the probe's round trip without any
+        worker's injection point, on a lane of its own, bounded by the
+        heartbeat timeout.  Every virtual worker lives on this one card, so
+        a failed card probe (a sticky CUDA error, a wedged device) means
+        every worker is gone; an injected worker loss leaves it healthy."""
+        box, done, abandoned = _lane_for_device(self.device, -1).submit(self._round_trip)
+        if not done.wait(timeout=self.job.heartbeat_timeout_s):
+            abandoned.set()
+            return False
+        return "e" not in box and bool(box.get("r"))
 
     def _reap_after_runtime_error(self, live: list[int], metrics: Metrics) -> list[int]:
         """Probe every live worker after a runtime error or a lapsed wait;
@@ -905,7 +967,14 @@ class SpmdScheduler:
         if data.dtype.kind == "f":
             return sort_float_keys_via_uint(self.sort, data, metrics, job_id, **knobs)
         metrics = metrics if metrics is not None else Metrics()
-        metrics.event("job_start", mode="spmd", n_keys=len(data), job_id=job_id)
+        if self.flight is not None:
+            self.flight.attach(metrics)
+        if self.telemetry is not None:
+            self.telemetry.attach(metrics)
+        metrics.event(
+            "job_start", mode="spmd", n_keys=len(data), job_id=job_id,
+            tenant=self.job.tenant,
+        )
         self.table.revive_all()
         ckpt = None
         work = data

@@ -4,8 +4,13 @@ Counterpart of ``dsort_tpu/utils/events.py``'s journal: a thread-safe log of
 typed, monotonic-timestamped records that a `Metrics` fans its events into
 (``Metrics(journal=EventLog())``), persisted as JSONL in the reference's
 record format (``seq``, ``t``, ``mono``, ``type``, then the fields) — the
-``--journal`` artifact of ``cli run``; `COUNTERS` names every counter.
-Rotation, the Chrome-trace export and the human report are not ported yet.
+``--journal`` artifact of ``cli run`` and ``cli serve``; `COUNTERS` names
+every counter.  The registries hold the reference's types of every ported
+plane, the serving layer, the planner, the compile ledger and the flight
+recorder included, with its descriptions word for word.  Not ported yet:
+the fleet's and the native runtime's events (``agent_*``, ``job_routed``,
+``health_verdict``, ``worker_join``, ...), journal rotation, the
+Chrome-trace export and the human report (``dsort report``).
 """
 
 from __future__ import annotations
@@ -116,6 +121,46 @@ EVENT_TYPES: dict[str, str] = {
     "wave_resume": "an interrupted wave's missing runs were re-sorted at "
                    "run granularity — restart-resume or in-flight repair "
                    "(wave, missing, present, reason)",
+    # The flight recorder, the serving layer, the compile ledger and the
+    # planner (obs.flight, serve, obs.prof, obs.plan), in the reference's
+    # words:
+    "flight_dump": "the fault flight recorder dumped a postmortem bundle "
+                   "(path, recovery_path)",
+    "job_admitted": "admission control accepted a job into the service "
+                    "queue (tenant, queue_depth, n_keys)",
+    "job_rejected": "admission control rejected a job (tenant, reason — "
+                    "one of serve.admission.ADMISSION_REASONS)",
+    "job_dequeued": "the fair scheduler dequeued a job for dispatch "
+                    "(tenant, wait_s — the measured queue wait, big, "
+                    "slices)",
+    "job_evicted": "a fault evicted a queued/in-flight job from its mesh "
+                   "slice (tenant, reason, slice, readmits) — dumps one "
+                   "flight-recorder bundle per eviction",
+    "job_readmitted": "an evicted job re-entered the service queue "
+                      "(tenant, readmits)",
+    "slice_retired": "a mesh sub-slice failed its liveness probe and left "
+                     "the packing rotation (slice)",
+    "variant_prewarm": "compiled-variant cache rungs were prewarmed at "
+                       "startup (n, rungs)",
+    "serve_drain": "the service began draining — no new admissions "
+                   "(reason, drain, queued, in_flight)",
+    "serve_stop": "the service wound down; the journal's close event "
+                  "(jobs_done, jobs_failed, counters)",
+    "variant_compiled": "one jit compile landed in the variant ledger "
+                        "(variant, compile_s, flops, bytes_accessed, "
+                        "peak/temp/output/argument_hbm_bytes)",
+    "hbm_watermark": "a --memwatch device-memory snapshot at a phase "
+                     "boundary (phase, edge, bytes_in_use, "
+                     "max_device_bytes, source)",
+    "plan_decision": "the closed-loop planner chose a knob value from "
+                     "measured inputs, journaled BEFORE dispatch (policy — "
+                     "one of obs.plan.PLAN_POLICIES, chosen, inputs — the "
+                     "measured dict the pure policy replays from, rejected "
+                     "— alternatives with reasons)",
+    "plan_override": "an explicit flag/conf value won over the planner "
+                     "while autotune was on (policy, explicit — the value "
+                     "that won, planned — what the planner would have "
+                     "chosen, inputs)",
 }
 
 #: Every `Metrics.bump` name in this package, with its meaning, under the
@@ -183,6 +228,29 @@ COUNTERS: dict[str, str] = {
     "padded_elems": "elements allocated in batched padding layouts",
     "multihost_ranges_restored": "multi-process ranges restored",
     "multihost_resort_keys": "keys re-sorted by the multi-process resume path",
+    # The flight recorder, the serving layer, the compile ledger and the
+    # planner, in the reference's words:
+    "flight_dumps": "postmortem bundles dumped by the fault flight recorder",
+    "jobs_admitted": "jobs accepted by the serving layer's admission control",
+    "jobs_rejected": "jobs rejected by admission control (typed verdict)",
+    "jobs_readmitted": "evicted jobs re-admitted to the service queue",
+    "slice_dispatches": "small jobs packed onto mesh sub-slices",
+    "fullmesh_dispatches": "big jobs dispatched onto the full SPMD mesh",
+    "variant_cache_hits": "compiled-variant cache hits (rung already cached)",
+    "variant_cache_misses": "compiled-variant cache misses (rung compiled)",
+    "variant_cache_evictions": "compiled variants dropped by the LRU bound",
+    "variant_cache_prewarms": "compiled-variant rungs built by the startup "
+                              "prewarm pass",
+    "variant_compiles": "jit compiles recorded by the introspection ledger "
+                        "(obs.prof; each carries cost/HBM analysis)",
+    "hbm_watermarks": "device-memory snapshots taken at phase boundaries "
+                      "(--memwatch)",
+    "plan_decisions": "knob values the closed-loop planner chose from "
+                      "measured inputs (obs.plan; each journals a "
+                      "plan_decision)",
+    "plan_overrides": "explicit flag/conf values that won over the planner "
+                      "while autotune was on (each journals a "
+                      "plan_override)",
 }
 
 

@@ -958,3 +958,65 @@ def test_two_rank_cluster_on_cuda_matches_plain(cuda, tmp_path):
             assert a["device"].startswith("cuda") and a["wire_bytes"] > 0
         if i != 1:  # keys: 2^19 a rank in 4 shards of 2^17 go through the block kernels
             assert all(m["launches"].get("bitonic_tile_kernel") for m in on_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["auto", "pallas"])
+def test_service_slices_run_on_their_own_streams(cuda, kernel):
+    """`SortService` on the card: 8 slices, each with its own CUDA stream;
+    concurrent small jobs of three tenants and one big job, every output
+    equal to numpy's, the block kernels (or S1) launched, and each prewarm
+    first call recorded once per slice stream."""
+    from dsort_tpu_torch.config import JobConfig, ServeConfig
+    from dsort_tpu_torch.obs.prof import LEDGER
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.utils.events import EventLog
+
+    LEDGER.reset()
+    journal = EventLog()
+    svc = SortService(8, job=JobConfig(local_kernel=kernel, settle_delay_s=0.01),
+                      serve=ServeConfig(small_job_max=1 << 20), journal=journal)
+    streams = {s.cuda_stream for s in svc._streams.values()}
+    assert len(streams) == 8 and torch.cuda.current_stream().cuda_stream not in streams
+    assert svc.prewarm(sizes=[1 << 17]) == 1
+    compiled = [e for e in journal.events() if e.type == "variant_compiled"]
+    assert len(compiled) == 8  # one first call per slice stream
+    rng = np.random.default_rng(31)
+    tb.reset_launch_counts()
+    ps.reset_launch_counts()
+    jobs = [(d := _keys(rng, (1 << 17) + 5 * i, np.int32),
+             svc.submit(d, tenant=("acme", "blue", "coral")[i % 3])[1]) for i in range(12)]
+    big = _keys(rng, 1 << 21, np.int32)
+    jobs.append((big, svc.submit(big, tenant="acme")[1]))
+    for d, t in jobs:
+        np.testing.assert_array_equal(t.result(timeout=300), np.sort(d))
+    svc.shutdown(drain=True)
+    if kernel == "auto":
+        assert tb.launch_counts()["bitonic_tile_kernel"] >= 13
+    else:
+        assert ps.launch_counts()["tile_sort_kernel"] >= 12
+    deq = [e.fields for e in journal.events() if e.type == "job_dequeued"]
+    assert len({tuple(f["slices"]) for f in deq if not f["big"]}) > 1
+
+
+@pytest.mark.cuda
+def test_service_slice_loss_readmits_on_cuda(cuda):
+    from dsort_tpu_torch.config import JobConfig, ServeConfig
+    from dsort_tpu_torch.scheduler import FaultInjector
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.utils.events import EventLog
+
+    inj, journal = FaultInjector(), EventLog()
+    svc = SortService(8, job=JobConfig(settle_delay_s=0.01), serve=ServeConfig(),
+                      journal=journal, injector=inj, start=False)
+    inj.fail_once(0, "slice")
+    rng = np.random.default_rng(32)
+    d = _keys(rng, 1 << 18, np.int64)
+    _, t = svc.submit(d, tenant="acme")
+    svc.start()
+    np.testing.assert_array_equal(t.result(timeout=300), np.sort(d))
+    svc.shutdown(drain=True)
+    types = journal.types()
+    assert types.index("job_evicted") < types.index("job_readmitted") < types.index("job_done")
+    assert svc.stats()["slices"] == 8 and svc._sched.probe_card()

@@ -259,10 +259,10 @@ def test_job_config_checks_the_fault_plane_fields(bad):
 
 def test_job_config_refuses_checkpoint_dir(tmp_path):
     """The refusal of ``checkpoint_dir`` went with the port of resumable
-    jobs: `from_dict` now carries it, as the reference's config holds it,
-    and still refuses ``autotune``, the one setting left unported."""
+    jobs, and the refusal of ``autotune`` with the port of the planner:
+    `from_dict` now carries both, as the reference's config holds them."""
     job = JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(checkpoint_dir=str(tmp_path))))
     assert job.checkpoint_dir == str(tmp_path)
     assert JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(checkpoint_dir=None))).checkpoint_dir is None
-    with pytest.raises(ConfigError, match="autotune.*not yet ported"):
-        JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(autotune=True)))
+    job = JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(autotune=True, explicit=("exchange",))))
+    assert job.autotune is True and job.explicit == ("exchange",)

@@ -201,5 +201,5 @@ def test_job_config_from_dict_and_validation():
                  redundancy_mode="parity")
     job = JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(**knobs)))
     assert {k: getattr(job, k) for k in knobs} == knobs
-    with pytest.raises(ConfigError, match="autotune.*not yet ported"):
-        JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(autotune=True)))
+    # So is the planner: from_dict carries autotune.
+    assert JobConfig.from_dict(dataclasses.asdict(JaxJobConfig(autotune=True))).autotune is True

@@ -64,7 +64,8 @@ def _events(journal):
     its clock fields left out."""
     return [(e.type, {k: v for k, v in e.fields.items() if k not in TIMING})
             for e in journal.events()
-            if e.type in events.EVENT_TYPES and e.type not in ("phase_start", "phase_end")]
+            if e.type in events.EVENT_TYPES
+            and e.type not in ("phase_start", "phase_end", "variant_compiled")]
 
 
 def _same_bits(a, b):
