@@ -18,13 +18,21 @@ Phases (any failure raises, so the exit code is non-zero):
    the tile kernel at k_start in {2, 4, T/2, T}, the merge at k in {2T, 4T,
    8T}, with full (key, rank) ties and extreme keys; the ring exchange
    kernel on the plan of a 2^26 int32 sort (keys) and of a 2^23-record
-   TeraSort sort (kv); the payload gather with 92-byte rows, and swept over
+   TeraSort sort (kv), and keys alone on the edges of its vector form (P of
+   2, 3, 5, 8, slots of 1 to 4096 keys, bucket starts at every offset mod
+   4, lengths 0, 1, 3, cap - 1, cap, above cap, sentinel keys inside
+   buckets, shards off a 16-byte boundary); the payload gather with
+   92-byte rows, and swept over
    rows of 1, 13, 16, 92, 100 and 256 bytes, a ``total`` that is not a
    multiple of 32, tags read from wider rows and tags out of range; S1 at
    every ``tile_rows`` the wrapper admits (1..2048 int32, 1..1024 int64: 1
    to 8 CTAs a tile); S2 at every ``tile_rows`` it admits (1..1024, both key
    types, 1 to 8 CTAs a tile) on random, % 7 and extreme keys, each with the
    index as an arange, a permutation and with repeated (key, index) pairs;
+   S3 at 2^26 int32 and 2^24 int64 (five digits each), and on its vector
+   form's edges: every key type at bases 0-3 keys past a 16-byte boundary,
+   n of 0, 1, 15 and 2^20 + 7, 1, 2^8, 2^13 and 2^14 buckets, shifts at and
+   past the key's width;
 3. whole sorts: ``block_sort`` at 2^24 and 2^26 int32 and 2^24 int64, and
    ``block_merge_runs`` at the post-exchange shape, each equal to torch.sort;
 4. the main paths, each driven with the launch counts set to 0 just before
@@ -47,7 +55,8 @@ Phases (any failure raises, so the exit code is non-zero):
    ``merge_kernel="bitonic"`` at 2^24 int32 and for 2^23 records;
    ``pallas_sort_kv`` on 2^23 TeraSort and 2^22 zipf records (stable);
    ``cli run --kernel pallas``;
-5. timings at the main path's shapes: each kernel, its plain version and
+5. timings at the main path's shapes: each kernel (one call, and alone: 50
+   calls back to back over one pair of events), its plain version and
    the nearest torch call (``library_ms``), the bound; a contiguous copy
    of the gather's bytes beside the gather; the global-stage
    kernel's pass at every S; the host-to-host
@@ -285,6 +294,26 @@ def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def cuda_ms_alone(fn, launches: int = 50, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call on its own: ``launches`` calls back
+    to back between one pair of CUDA events, divided by ``launches``.  The
+    host's work around each call (the wrapper's checks, its allocation, the
+    ctypes call) overlaps the device's, so it counts only where it is
+    longer than a launch.  Each call's result is dropped before the next
+    call, so the caching allocator hands the next call the same memory."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
 def host_times(fn, reps: int) -> list[float]:
     """Host wall times (ms) of ``reps`` calls of ``fn()``, each ending in a
     device sync."""
@@ -331,6 +360,29 @@ def tile_inputs(rng, shape, dtype, ranked: bool) -> list:
     out.append(("INT_MIN / INT_MAX / sentinel keys", rng.choice(extremes, shape),
                 rng.choice(np.array([i32.max, i32.min, 0], np.int32), shape)))
     return out
+
+
+def edge_exchange_inputs(rng, p, n_local, dtype, cap_base, sentinel_run):
+    """Sorted shards (their top third sentinel-valued keys when
+    ``sentinel_run``), step caps near ``cap_base``, each bucket's start at
+    the next offset modulo 4 in turn and its length 0, 1, 3, cap - 1, cap or
+    cap + 5 (clipped to cap by the kernel) in turn, every bucket inside its
+    shard."""
+    caps = tuple(max(1, cap_base + int(rng.integers(-(cap_base // 4), cap_base // 4 + 1)))
+                 for _ in range(p))
+    xs = np.sort(random_keys(rng, (p, n_local), dtype), axis=1)
+    if sentinel_run:
+        xs[:, n_local - n_local // 3:] = np.iinfo(dtype).max
+    starts = np.zeros((p, p), np.int64)
+    lens = np.zeros((p, p), np.int64)
+    for i in range(p * p):
+        s, d = divmod(i, p)
+        cap = caps[(d - s) % p]
+        ln = min((0, 1, 3, cap - 1, cap, cap + 5)[i % 6], n_local)
+        room = n_local - min(ln, cap)
+        st = int(rng.integers(0, room // 4 + 1)) * 4 + i % 4
+        starts[s, d], lens[s, d] = (st if st <= room else room), ln
+    return xs, starts, lens, caps
 
 
 def ordered_float_reference(x: np.ndarray) -> np.ndarray:
@@ -3834,6 +3886,35 @@ def main() -> int:
          lambda: rk.ring_exchange(xs_plan, starts32, lens32, caps32)[:1],
          lambda: rk.ring_exchange_plain(xs_plan, starts32, lens32, caps32)[:1])
 
+    # R1's edges (its own generator): P of 2, 3, 5 and 8, both key types,
+    # slots of 1-2 keys (the scalar form), 4, 8, 128 and several warp
+    # chunks; bucket starts at every offset modulo 4, lengths 0, 1, 3,
+    # cap - 1, cap and above cap; sentinel-valued keys inside buckets;
+    # shards held one key off a 16-byte boundary.
+    erng, cases = np.random.default_rng(12), 0
+    for p_edge in (2, 3, 5, 8):
+        for dtype in (np.int32, np.int64):
+            for cap_base, n_local in ((1, 24), (3, 24), (6, 40), (100, 400), (3000, 10000)):
+                for sentinel_run in (False, True):
+                    exs, est, eln, ecaps = edge_exchange_inputs(erng, p_edge, n_local, dtype,
+                                                                cap_base, sentinel_run)
+                    args = [torch.from_numpy(a).to(dev) for a in (exs, est, eln)]
+                    for shifted in (False, True):
+                        if shifted:  # the same keys one key past a 16-byte boundary
+                            flat = torch.cat([args[0].new_zeros(1), args[0].reshape(-1)])
+                            args[0] = flat[1:].view(p_edge, n_local)
+                        got = rk.ring_exchange(*args, ecaps)[0]
+                        if not torch.equal(got, rk.ring_exchange_plain(*args, ecaps)[0]):
+                            raise AssertionError(
+                                f"ring_exchange_kernel P={p_edge} {np.dtype(dtype).name} caps "
+                                f"{ecaps} sentinel_run={sentinel_run} shifted={shifted}: "
+                                "disagrees with its plain version")
+                        cases += 1
+    torch.cuda.synchronize()
+    log(f"check ring_exchange_kernel edges: {cases} cases, P=2/3/5/8, int32/int64, slots "
+        "1..4096, starts at every offset mod 4, lengths 0/1/3/cap-1/cap/cap+5, sentinel keys "
+        "in buckets, shards off a 16-byte boundary: bit-identical=True")
+
     tk, tv = ingest.gen_terasort(nrec, seed=1)
     sk, sv, kcnt = pad_kv_to_shards(tk, tv, P)
     kcnt_d = torch.from_numpy(kcnt).to(dev)
@@ -3937,6 +4018,28 @@ def main() -> int:
             ref = torch.bincount(((xh >> shift) & ((1 << bits) - 1)).long(), minlength=1 << bits)
             if not (torch.equal(h.long(), ref) and int(h.sum()) == xh.numel()):
                 raise AssertionError(f"radix_histogram {shift},{bits}: not torch.bincount's")
+    # S3's edges (its own generator): bases 0-3 keys past a 16-byte boundary,
+    # lengths 0, 1, 15 and 2^20 + 7 (a scalar head and tail), 1, 2^13
+    # (shared memory) and 2^14 buckets (global atomics), shifts at and past
+    # the key's width.
+    hrng, cases = np.random.default_rng(13), 0
+    for dtype in (np.int32, np.int64, np.uint32, np.uint64):
+        width = 8 * np.dtype(dtype).itemsize
+        wide = torch.from_numpy(random_keys(hrng, (1 << 20) + 10, dtype)).to(dev)
+        for n_h in (0, 1, 15, (1 << 20) + 7):
+            for off in range(4):
+                xv = wide[off:off + n_h]
+                for shift, bits in ((0, 0), (0, 8), (5, 13), (5, 14), (width, 4), (width + 9, 8)):
+                    if not torch.equal(ps.radix_histogram(xv, shift, bits),
+                                       ps.radix_histogram_plain(xv, shift, bits)):
+                        raise AssertionError(
+                            f"radix_histogram_kernel {np.dtype(dtype).name} n={n_h} offset "
+                            f"{off} shift={shift} bits={bits}: disagrees with its plain version")
+                    cases += 1
+    torch.cuda.synchronize()
+    log(f"check radix_histogram_kernel edges: {cases} cases, int32/int64/uint32/uint64, bases "
+        "0-3 keys past 16 bytes, n=0/1/15/2^20+7, bits 0/8/13/14, shift at and past the width: "
+        "bit-identical=True")
     reset()
     ps.radix_histogram(hist_in[np.int32], 0, 8)
     hist_launches = counts()["radix_histogram_kernel"]
@@ -4217,16 +4320,18 @@ def main() -> int:
 
     def entry(name, source, launches, kernel, plain, library, nbytes, ops, label):
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
+        ms_alone = cuda_ms_alone(kernel)
         library_ms = cuda_ms(library) if library is not None else None
         b_ms, b_by = bound_ms(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name.removesuffix(RANK)], "launches": launches,
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
+            "max_abs_err": err[name], "ms": ms, "ms_alone": ms_alone, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
         })
-        log(f"time {name} {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{library_ms} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        log(f"time {name} {label}: {ms:.4f} ms one call, {ms_alone:.4f} ms alone (50 back to "
+            f"back), plain {plain_ms:.4f} ms, library {library_ms} ms, bound {b_ms:.4f} ms "
+            f"({b_by}) [{card}]")
 
     entry("bitonic_tile_kernel", SOURCES["block"], main_launches["bitonic_tile_kernel"],
           lambda: tb.bitonic_tile(x, T), lambda: tb.tile_sort_plain(x, T),

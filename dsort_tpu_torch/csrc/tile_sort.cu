@@ -30,6 +30,7 @@
 
 #include <cooperative_groups.h>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "bitonic_regs.cuh"
@@ -42,7 +43,11 @@ constexpr int kTileThreads = 1024;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory of one CTA on sm_90
 constexpr int kMaxCluster = 8;    // portable cluster size
 constexpr int kHistThreads = 256;
-constexpr int kSharedHistBits = 13;  // 32 KB of int32 buckets in shared memory
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kSharedHistBits = 13;     // 32 KB of int32 buckets in shared memory
+constexpr int kHistSmemBytes = 32768;   // a block's copies of the histogram together
+constexpr int kHistItems = 8;           // 16-byte loads a thread in flight
+constexpr int kHistBlocksPerSm = 8;     // the persistent grid, at most this many a SM
 
 // S1's keys a thread (E): a CTA holds its share L of the tile in L / E
 // threads, E = 16, or 32 at the one share of 32,768 keys (int32, the
@@ -182,38 +187,73 @@ __device__ __forceinline__ int radix_digit(K x, int shift, unsigned int mask) {
 }
 
 // S3.  Bound: the input is read once (n sizeof(K) bytes) and 2^bits int32
-// counts written.  The TPU kernel counts with a compare+reduce per bucket
-// over each tile, carried across its sequential grid; blocks here run in
-// parallel, so each CTA strides over the input, counts into a shared-memory
-// histogram with shared atomics and adds its non-zero buckets to the zeroed
-// output with global atomics.  Beyond 2^13 buckets the counts go to global
-// atomics straight.  The ragged edge is masked, so no pads and no pad
-// correction; integer atomics give exact counts in any order.
+// counts written: 0.0801 ms for 2^26 int32 on H100 HBM3.  The TPU kernel
+// counts with a compare+reduce per bucket over each tile, carried across
+// its sequential grid; blocks here run in parallel, so each block of a
+// persistent grid (at most kHistBlocksPerSm a SM, as many as stay
+// resident) strides over the input and adds its counts to the output,
+// which the C entry zeroes on the stream first, with global atomics.
+// Design: the keys are read as 16-byte vectors, kHistItems of them a
+// thread issued before the first is counted (a scalar head up to the first
+// 16-byte boundary and a scalar tail, for a base such as x[1:]'s that is
+// not on one, go to the last block).  Up to 2^13 buckets, each warp counts
+// with shared atomics into its own copy of the histogram where
+// kHistWarps copies fit kHistSmemBytes (8 copies up to 2^10 buckets, fewer
+// above, one at 2^13), and the block folds its copies once at the end
+// with one global atomic per non-zero bucket; beyond 2^13 buckets the
+// counts go to global atomics straight.  The ragged edge is masked, so no
+// pads and no pad correction; integer atomics give exact counts in any
+// order.  On an H100 this form took 0.091 ms alone for 2^26 int32 at 8
+// bits (2.9 TB/s); 2 and 4 loads a thread were slower, one copy of the
+// histogram a block as fast (PERF.md §6; dsort_tpu_torch/tools/
+// r1_s3_forms.py).
 template <typename K>
 __global__ void __launch_bounds__(kHistThreads)
-    radix_histogram_kernel(const K* __restrict__ x, long long n, int shift, int bits,
-                           int32_t* __restrict__ out) {
+    radix_histogram_kernel(const K* __restrict__ x, long long n, long long head, int shift,
+                           int bits, int copies, int32_t* __restrict__ out) {
   extern __shared__ int32_t hist[];
+  constexpr int V = 16 / static_cast<int>(sizeof(K));
   const int buckets = 1 << bits;
   const unsigned int mask = static_cast<unsigned int>(buckets - 1);
-  const bool shared = bits <= kSharedHistBits;
-  if (shared) {
-    for (int b = threadIdx.x; b < buckets; b += blockDim.x) hist[b] = 0;
+  const int tid = static_cast<int>(threadIdx.x);
+  int32_t* h = out;
+  if (copies > 0) {
+    for (int b = tid; b < copies * buckets; b += kHistThreads) hist[b] = 0;
     __syncthreads();
+    h = hist + (tid / 32 % copies) * buckets;
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int d = radix_digit<K>(x[i], shift, mask);
-    if (shared)
-      atomicAdd(hist + d, 1);
-    else
-      atomicAdd(out + d, 1);
+  const long long nv = (n - head) / V;  // whole vectors from x + head
+  const long long tail = head + nv * V;
+  if (blockIdx.x == gridDim.x - 1) {  // at most V - 1 keys each
+    if (tid < head)
+      atomicAdd(h + radix_digit<K>(x[tid], shift, mask), 1);
+    else if (tid >= 32 && tail + (tid - 32) < n)
+      atomicAdd(h + radix_digit<K>(x[tail + (tid - 32)], shift, mask), 1);
   }
-  if (shared) {
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  const long long step = static_cast<long long>(gridDim.x) * kHistThreads * kHistItems;
+  for (long long i = static_cast<long long>(blockIdx.x) * kHistThreads * kHistItems + tid;
+       i < nv; i += step) {
+    uint4 v[kHistItems];
+#pragma unroll
+    for (int u = 0; u < kHistItems; ++u)
+      if (i + u * kHistThreads < nv) v[u] = __ldg(xv + i + u * kHistThreads);
+#pragma unroll
+    for (int u = 0; u < kHistItems; ++u) {
+      if (i + u * kHistThreads >= nv) break;
+      K keys[V];
+      memcpy(keys, &v[u], 16);
+#pragma unroll
+      for (int e = 0; e < V; ++e) atomicAdd(h + radix_digit<K>(keys[e], shift, mask), 1);
+    }
+  }
+  if (copies > 0) {
     __syncthreads();
-    for (int b = threadIdx.x; b < buckets; b += blockDim.x)
-      if (hist[b] != 0) atomicAdd(out + b, hist[b]);
+    for (int b = tid; b < buckets; b += kHistThreads) {
+      int32_t c = 0;
+      for (int w = 0; w < copies; ++w) c += hist[w * buckets + b];
+      if (c != 0) atomicAdd(out + b, c);
+    }
   }
 }
 
@@ -283,18 +323,39 @@ int launch_tile_sort_kv(void* x, void* v, long long tiles, int T, int C, void* s
 
 template <typename K>
 int launch_histogram(const void* x, long long n, int shift, int bits, void* out, void* stream) {
-  if (bits < 0 || bits > 30 || shift < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
+  if (bits < 0 || bits > 30 || shift < 0 || n < 0 ||
+      (reinterpret_cast<uintptr_t>(x) & (sizeof(K) - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t buckets = static_cast<size_t>(1) << bits;
+  cudaError_t e = cudaMemsetAsync(out, 0, buckets * 4, st);
+  if (e != cudaSuccess || n == 0) return static_cast<int>(e);
+  int copies = 0;
+  if (bits <= kSharedHistBits) {
+    copies = kHistWarps;
+    while (copies > 1 && static_cast<size_t>(copies) * buckets * 4 > kHistSmemBytes) copies /= 2;
+  }
+  const size_t smem = static_cast<size_t>(copies) * buckets * 4;
+  int device = 0, sms = 0, resident = 0;
+  e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, radix_histogram_kernel<K>,
+                                                      kHistThreads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long want = (n + kHistThreads - 1) / kHistThreads;
-  const long long most = static_cast<long long>(sms) * 8;
+  constexpr long long V = 16 / static_cast<long long>(sizeof(K));
+  // Keys before the first 16-byte boundary: counted one by one.
+  const long long to_boundary =
+      static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(x) & 15)) & 15) / sizeof(K);
+  const long long head = to_boundary < n ? to_boundary : n;
+  const long long per_block = static_cast<long long>(kHistThreads) * kHistItems;
+  const long long nv = (n - head) / V;
+  const long long want = nv > 0 ? (nv + per_block - 1) / per_block : 1;
+  const long long most =
+      static_cast<long long>(sms) * (resident < kHistBlocksPerSm ? resident : kHistBlocksPerSm);
   const unsigned int blocks = static_cast<unsigned int>(want < most ? want : most);
-  const size_t smem = bits <= kSharedHistBits ? (static_cast<size_t>(1) << bits) * 4 : 0;
-  radix_histogram_kernel<K><<<blocks, kHistThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const K*>(x), n, shift, bits, static_cast<int32_t*>(out));
+  radix_histogram_kernel<K><<<blocks, kHistThreads, smem, st>>>(
+      static_cast<const K*>(x), n, head, shift, bits, copies, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,7 +381,8 @@ int dsort_tile_sort_kv_i64(void* x, void* v, long long tiles, int T, int C, void
   return launch_tile_sort_kv<int64_t>(x, v, tiles, T, C, stream);
 }
 
-// Adds the digit counts of n keys to `out` (2^bits int32, zeroed by the caller).
+// Zeroes `out` (2^bits int32) on the stream and counts the digits of n keys
+// into it; refuses a base not aligned to the key.
 int dsort_radix_histogram_i32(const void* x, long long n, int shift, int bits, void* out,
                               void* stream) {
   return launch_histogram<int32_t>(x, n, shift, bits, out, stream);

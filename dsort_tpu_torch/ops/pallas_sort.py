@@ -233,9 +233,9 @@ def radix_histogram(
     if not _route(x):
         return radix_histogram_plain(x, shift, bits)
     x = x.contiguous()
-    out = torch.zeros(1 << bits, dtype=torch.int32, device=x.device)
     if x.numel() == 0:
-        return out
+        return torch.zeros(1 << bits, dtype=torch.int32, device=x.device)
+    out = torch.empty(1 << bits, dtype=torch.int32, device=x.device)  # the C entry zeroes it
     with torch.cuda.device(x.device):
         err = getattr(_library(), f"dsort_radix_histogram_{_HIST_DTYPES[x.dtype]}")(
             x.data_ptr(), x.numel(), shift, bits, out.data_ptr(),

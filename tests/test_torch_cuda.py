@@ -7,6 +7,8 @@ JAX-free, so it also runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX's CPU mesh.)
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -222,6 +224,37 @@ def _exchange_inputs(rng, p, n_local, dtype, row_bytes):
     return xs, starts.astype(np.int64), lens.astype(np.int64), caps, payload
 
 
+def _edge_exchange_inputs(rng, p, n_local, dtype, cap_base, sentinel_run, base_offset):
+    """Sorted shards (their top third sentinel-valued keys when
+    ``sentinel_run``), held at ``base_offset`` keys into a wider buffer;
+    step caps near ``cap_base``; each bucket's start at the next offset
+    modulo 4 in turn and its length 0, 1, 3, cap - 1, cap or cap + 5 (the
+    kernel clips it to cap) in turn, every bucket inside its shard."""
+    caps = tuple(max(1, cap_base + int(rng.integers(-(cap_base // 4), cap_base // 4 + 1)))
+                 for _ in range(p))
+    wide = np.sort(_keys(rng, (p, n_local), dtype), axis=1)
+    if sentinel_run:
+        wide[:, n_local - n_local // 3:] = np.iinfo(dtype).max
+    flat = np.concatenate([np.zeros(base_offset, dtype), wide.reshape(-1)])
+    xs = torch.from_numpy(flat)[base_offset:].view(p, n_local)
+    starts = np.zeros((p, p), np.int64)
+    lens = np.zeros((p, p), np.int64)
+    for i in range(p * p):
+        s, d = divmod(i, p)
+        cap = caps[(d - s) % p]
+        ln = min((0, 1, 3, cap - 1, cap, cap + 5)[i % 6], n_local)
+        room = n_local - min(ln, cap)
+        st = int(rng.integers(0, room // 4 + 1)) * 4 + i % 4
+        starts[s, d], lens[s, d] = (st if st <= room else room), ln
+    return xs, torch.from_numpy(starts), torch.from_numpy(lens), caps
+
+
+#: (cap_base, n_local): slots of 1-2 keys (the scalar form for int32), 4
+#: (one vector), 8 (not a multiple of a lane's 4 vectors), 128 (under one
+#: warp chunk), 1024 and 4096 (several chunks a slot).
+_EDGE_SLOTS = ((1, 24), (3, 24), (6, 40), (100, 400), (700, 3000), (3000, 10000))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,dtype,row_bytes", [
     (8, np.int32, 92), (7, np.int64, 13), (2, np.int64, 16),
@@ -231,7 +264,29 @@ def test_ring_exchange_and_gather_match_plain(cuda, p, dtype, row_bytes):
     """The exchange (keys, kv) and the gather bit-identical to their plain
     versions; the gather on the exchange's workspace, with its tags a slice
     of wider rows (stride above total), and on a ``total`` that is not a
-    multiple of 32, tags below 0 and at or above ``total`` included."""
+    multiple of 32, tags below 0 and at or above ``total`` included.  The
+    exchange also on the edges of the keys kernel's vector form: bucket
+    starts at every offset modulo 4, lengths 0, 1, 3, cap - 1, cap and
+    above cap, slots from 1 key to several warp chunks, sentinel-valued
+    keys inside buckets, shards off a 16-byte boundary."""
+    erng = np.random.default_rng(100 + p)
+    for (cap_base, n_local), sentinel_run, base_offset in itertools.product(
+            _EDGE_SLOTS, (False, True), (0, 1)):
+        host = _edge_exchange_inputs(erng, p, n_local, dtype, cap_base, sentinel_run,
+                                     base_offset)
+        payload = torch.from_numpy(erng.integers(0, 256, (p, n_local, row_bytes),
+                                                 dtype=np.uint8))
+        dev = [t.to(cuda) for t in host[:3]]
+        if base_offset:  # the same misaligned view on the card
+            dev[0] = torch.cat([dev[0].new_zeros(1), dev[0].reshape(-1)])[1:].view(p, n_local)
+        for kv in (False, True):
+            got = rk.ring_exchange(*dev, host[3], payload.to(cuda) if kv else None)
+            want = rk.ring_exchange_plain(*host, payload if kv else None)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if g is not None:
+                    assert torch.equal(g.cpu(), w), (cap_base, n_local, sentinel_run,
+                                                     base_offset, kv)
     rng = np.random.default_rng(p)
     xs, starts, lens, caps, payload = _exchange_inputs(rng, p, 20_000, dtype, row_bytes)
     host = [torch.from_numpy(a) for a in (xs, starts, lens, payload)]
@@ -405,6 +460,19 @@ def test_radix_histogram_matches_plain_version(cuda, dtype):
         got = ps.radix_histogram(x, shift, bits)
         assert torch.equal(got, ps.radix_histogram_plain(x, shift, bits)), (shift, bits)
         assert int(got.sum()) == x.numel()
+    # The vector form's edges: bases 0-3 keys past a 16-byte boundary (x[1:]
+    # is contiguous), lengths with a scalar head and tail, 0 and 2^13 buckets
+    # (shared memory), 2^14 (global atomics), shifts at and past the width.
+    width = 8 * np.dtype(dtype).itemsize
+    wide = torch.from_numpy(_keys(rng, (1 << 20) + 10, dtype)).to(cuda)
+    for n in (0, 1, 15, (1 << 20) + 7):
+        for off in range(4):
+            xv = wide[off:off + n]
+            for shift, bits in ((0, 0), (0, 8), (5, 13), (5, 14), (width, 4), (width + 9, 8)):
+                got = ps.radix_histogram(xv, shift, bits)
+                assert torch.equal(got, ps.radix_histogram_plain(xv, shift, bits)), (
+                    n, off, shift, bits)
+                assert int(got.sum()) == n
 
 
 @pytest.mark.cuda
