@@ -208,6 +208,26 @@ Phases (any failure raises, so the exit code is non-zero):
    turns, a fresh cluster for each faulted turn); ``cli coordinator
    --workers 4`` with 4 ``cli worker`` processes over stdin, its output
    byte-identical to ``sort -n``, exit 0.
+15. ``bench`` (`bench_modes`): every mode but ``--fleet-mixed``, each
+   ``python -m dsort_tpu_torch.cli bench ...`` in a process of its own on
+   the card (through ``--bench-child``, which also keeps the run's launch
+   counts) with ``--journal`` in a temporary directory: ``--suite --reps
+   5``; the plain mode at 2^24 (``--memwatch``); ``--device-resident`` at
+   2^26; ``--exchange-ab`` at 2^24; ``--analyze-smoke`` at 2^20 (its 5%
+   gate binds from there; 2048 reps a side: the host's speed shifts
+   between regimes a few sorts long, and the minimum of 8 to 1024 swung
+   by up to ±11%); ``--coded-ab``, ``--coded-v2-ab``, ``--hier-ab``,
+   ``--autotune-ab`` (32 reps), ``--serve-mixed`` at 2^22;
+   ``--external-wave`` at 2^24.  Each mode's JSON lines are printed
+   (``bench 15.x``); a non-zero exit, a gate field that is not true, or a
+   kernel the mode must launch (K1, K2 and the tile merge everywhere; R1,
+   R2's exchange and the gather in the exchange A/B; R1 in the autotune
+   A/B, whose skewed pick is ``fused`` on the card) not launched fails the
+   run; every journal is held to the trace contracts.  Two gates are
+   timed and the host's noise decides them (``--analyze-smoke``'s 5% and
+   ``--autotune-ab``'s 0.95x): their readings are printed and kept out of
+   the exit code, while the rest of those modes' gates, read again from
+   their lines (`BENCH_TIMED`), still fail the run.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -3659,6 +3679,147 @@ def native_runtime(card, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, launc
     log(f"phase 14 native runtime: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
+
+#: Phase 15's modes: (label, arguments after ``bench``, the kernels each must
+#: launch on the card).  K1, K2 and the tile merge run every integer sort of
+#: 2^16 keys a shard and more under ``auto``; the fused arm of the exchange
+#: A/B launches R1 for keys and R2's exchange with the row gather for
+#: records, the planner's skewed pick is ``fused`` on the card (R1).
+BENCH_BLOCK = ("bitonic_tile_kernel", "bitonic_global_stage_kernel", "bitonic_tile_merge_kernel")
+BENCH_MODES = (
+    ("suite", ["--suite", "--reps", "5"], BENCH_BLOCK),
+    ("plain", ["--n", "16777216", "--reps", "5", "--memwatch"], BENCH_BLOCK),
+    ("device-resident", ["--device-resident", "--n", "67108864", "--reps", "4"], BENCH_BLOCK),
+    ("exchange-ab", ["--exchange-ab", "--n", "16777216", "--reps", "4"],
+     BENCH_BLOCK + ("ring_exchange_kernel", "ring_exchange_kernel+kv", "gather_rows_kernel")),
+    ("analyze-smoke", ["--analyze-smoke", "--n", "1048576", "--reps", "2048"], BENCH_BLOCK),
+    ("coded-ab", ["--coded-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
+    ("coded-v2-ab", ["--coded-v2-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
+    ("hier-ab", ["--hier-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
+    ("autotune-ab", ["--autotune-ab", "--n", "4194304", "--reps", "32"],
+     BENCH_BLOCK + ("ring_exchange_kernel",)),
+    ("serve-mixed", ["--serve-mixed", "--n", "4194304", "--reps", "2"], BENCH_BLOCK),
+    ("external-wave", ["--external-wave", "--n", "16777216", "--reps", "1"], BENCH_BLOCK),
+)
+#: The gate fields of bench's lines: each must be true where a line has it.
+BENCH_GATES = ("bit_identical", "validated_ok", "introspection_ok")
+
+
+def _analyze_gates(ln: dict, reps: int) -> tuple[bool, str]:
+    """``--analyze-smoke``: ``introspection_ok`` less its 5% overhead gate."""
+    return (0 < ln["skew_ratio_uniform"] < ln["skew_ratio_zipf"],
+            f"overhead_frac {ln['overhead_frac']} (gate < 0.05)")
+
+
+def _autotune_gates(ln: dict, reps: int) -> tuple[bool, str]:
+    """``--autotune-ab``: every gate but the 0.95x of the best hand-set arm."""
+    return (ln["bit_identical"] is True and ln["plan_decisions"] == reps
+            and ln["chosen_exchange"] == ln["expected_exchange"],
+            f"autotune_vs_best {ln['autotune_vs_best']} (gate >= 0.95)")
+
+
+#: The modes with a timed gate, which the host's noise decides (ROADMAP,
+#: "Held for the benchmark stage"): (the mode's lines, a function giving a
+#: line's other gates and the timed gate's reading).  A failed exit of such
+#: a mode passes only when it printed every line, raised nothing, and each
+#: line's other gates hold.
+BENCH_TIMED = {"analyze-smoke": (1, _analyze_gates), "autotune-ab": (2, _autotune_gates)}
+
+
+def bench_child() -> int:
+    """``chip_smoke.py --bench-child COUNTS ARG...``: runs the module
+    ``dsort_tpu_torch.cli`` as ``python -m dsort_tpu_torch.cli ARG...``
+    does, then writes the kernels' launch counts of the run to COUNTS."""
+    import runpy
+
+    from dsort_tpu_torch.ops import block_sort as tb
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.ops import ring_kernel as rk
+
+    counts_path = sys.argv[2]
+    sys.argv = ["dsort_tpu_torch.cli", *sys.argv[3:]]
+    try:
+        runpy.run_module("dsort_tpu_torch.cli", run_name="__main__", alter_sys=True)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code if isinstance(e.code, int) else 1
+    Path(counts_path).write_text(json.dumps(
+        {**tb.launch_counts(), **rk.launch_counts(), **ps.launch_counts()}))
+    return rc
+
+
+def bench_modes(card) -> None:
+    """Phase 15: ``bench``, every mode but ``--fleet-mixed``, each a
+    process of its own on the card (`bench_child`: ``python -m
+    dsort_tpu_torch.cli bench ...`` with its launch counts kept), each with
+    ``--journal`` in a temporary directory.  Each mode's JSON lines are
+    printed; a non-zero exit, a gate field that is not true or a kernel of
+    the mode not launched fails the phase, but for the timed gates of
+    `BENCH_TIMED`, whose readings are printed; every journal is held to the
+    trace contracts."""
+    import shutil
+    import tempfile
+
+    from dsort_tpu_torch.analysis.spec.contracts import conformance_report
+    from dsort_tpu_torch.obs.merge import read_journal_set, rotated_set
+
+    t_phase = time.perf_counter()
+    scratch = Path(tempfile.mkdtemp(prefix="dsort_bench_"))
+    checked: dict[str, int] = {}
+    n_records = 0
+    try:
+        for i, (label, argv, need) in enumerate(BENCH_MODES, 1):
+            journal, counts_path = scratch / f"{label}.jsonl", scratch / f"{label}.counts.json"
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--bench-child", str(counts_path),
+                   "bench", *argv, "--journal", str(journal)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+            for ln in lines:
+                log(f"bench 15.{i} {json.dumps(ln)} [{card}]")
+            got = json.loads(counts_path.read_text()) if counts_path.exists() else {}
+            rc = proc.returncode
+            if label in BENCH_TIMED:
+                n_lines, gates = BENCH_TIMED[label]
+                reps = int(argv[argv.index("--reps") + 1])
+                read = [(ln["metric"], *gates(ln, reps)) for ln in lines]
+                failed = [(m, "gates") for m, ok, _ in read if not ok]
+                for m, _, reading in read:
+                    log(f"bench 15.{i} {m}: {reading}, held out of the exit code [{card}]")
+                if rc == 1 and len(lines) == n_lines and "Traceback" not in proc.stderr:
+                    rc = 0  # only the timed gate failed
+            else:
+                failed = [(ln["metric"], g) for ln in lines for g in BENCH_GATES
+                          if g in ln and ln[g] is not True]
+            missing = [k for k in need if not got.get(k)]
+            for note in proc.stderr.splitlines():
+                if "peak device allocation" in note:  # the wave pipeline's, on the card
+                    log(f"bench 15.{i} {note.split('I dsort_tpu_torch.cli: ')[-1]} [{card}]")
+            log(f"bench 15.{i} {label}: exit {proc.returncode} in {wall:.1f} s, {len(lines)} lines, "
+                f"gates not true {failed}, launches "
+                f"{json.dumps({k: v for k, v in got.items() if v})} [{card}]")
+            if rc != 0 or not lines or failed or missing:
+                raise AssertionError(f"15.{i} bench {' '.join(argv)}: exit {proc.returncode}, "
+                                     f"{len(lines)} lines, gates not true {failed}, kernels not "
+                                     f"launched {missing}\n{proc.stderr[-3000:]}")
+            if label == "suite":
+                continue  # the ladder writes no journal, as the reference's
+            recs, _ = read_journal_set(rotated_set(str(journal)))
+            rep = conformance_report(recs)
+            n_records += len(recs)
+            if not recs or not rep["ok"]:
+                raise AssertionError(f"15.{i} {label} journal ({len(recs)} records): "
+                                     f"trace contract violated: {rep['violations'][:3]}")
+            for name, row in rep["contracts"].items():
+                checked[name] = checked.get(name, 0) + row["checked"]
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"bench 15.{len(BENCH_MODES) + 1} trace contracts over {len(BENCH_MODES) - 1} bench "
+        f"journals ({n_records} records): no violation; scoped traces checked {checked}")
+    log(f"phase 15 bench: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4627,6 +4788,10 @@ def main() -> int:
     native_runtime(card, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, launched, src,
                    want_bytes, work)
 
+    # 15. bench ---------------------------------------------------------------------
+    torch.cuda.empty_cache()  # the modes run in processes of their own on this card
+    bench_modes(card)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -4637,5 +4802,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILDREN = {"--real-error-child": real_error_child,
-                "--serve-real-error-child": serve_real_error_child}
+                "--serve-real-error-child": serve_real_error_child,
+                "--bench-child": bench_child}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,validate,gen,report,top} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,bench,validate,gen,report,top} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -85,6 +85,12 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   torch|numpy] [--kernel K] [--device cpu]``: one worker process
   (`runtime.worker`): it joins the coordinator and sorts each chunk on the
   card (``--backend torch``, the default) until the coordinator stops.
+- ``bench [--n N] [--reps R] [MODE]``: the reference's benchmark
+  (`cli_bench`): the plain mode (``--mode`` sorter over ``--n`` uniform
+  keys), ``--suite``, ``--device-resident``, ``--exchange-ab``,
+  ``--coded-ab``, ``--coded-v2-ab``, ``--hier-ab``, ``--autotune-ab``,
+  ``--serve-mixed``, ``--analyze-smoke``, ``--external-wave``; JSON lines
+  with the reference's names and keys, the exit code the mode's gates.
 
 The sorting subcommands take ``--journal J``, ``--journal-rotate-mb N``
 (the journal rotates to ``J.1``, ``J.2``, ... at N MiB; `_open_journal`)
@@ -101,7 +107,12 @@ the flags, then the planner — ``--no-autotune`` wins, then a conf
 ``AUTOTUNE=``, else autotune is on (`obs.plan`: the exchange planned per
 dispatch, journaled ``plan_decision``); a knob flag actually given joins
 ``JobConfig.explicit``, so the planner journals ``plan_override`` and
-yields.  They also take ``--tenant`` and ``--flight-dir``.  Two
+yields.  They also take ``--tenant`` and ``--flight-dir``.  ``bench`` and
+``coordinator`` take the reference's whole ``common()`` set (`_common_flags`),
+folded into the config the same way; ``batch`` accepts its ``--mode``,
+``--job-id`` and ``-o`` as the reference does, and reads none of them;
+``terasort`` and ``external`` take ``--conf`` (the job's keys and the
+``EXTERNAL_*`` keys, under the flags).  Two
 host tools run no sort and touch no device, as ``dsort``'s do:
 
 - ``validate INPUT [--against FILE] [--terasort|--binary] [--dtype D]``:
@@ -167,10 +178,11 @@ def _common(p: argparse.ArgumentParser, default_output: str) -> None:
     _knobs(p)
 
 
-def _knobs(p: argparse.ArgumentParser) -> None:
-    """The mesh, exchange and kernel flags every sorting subcommand takes."""
-    p.add_argument("--workers", type=int, default=None,
-                   help="virtual mesh shards (default 8; conf NUM_WORKERS)")
+def _knobs(p: argparse.ArgumentParser, device: bool = True,
+           workers_help: str = "virtual mesh shards (default 8; conf NUM_WORKERS)") -> None:
+    """The mesh, exchange and kernel flags every sorting subcommand takes
+    (``--device`` where the subcommand sorts in this process)."""
+    p.add_argument("--workers", type=int, default=None, help=workers_help)
     p.add_argument("--exchange", choices=_EXCHANGES, default=None,
                    help="bucket exchange schedule (default: JobConfig's); hier = the "
                         "two-level schedule: intra-host aggregation, one transfer per "
@@ -191,7 +203,8 @@ def _knobs(p: argparse.ArgumentParser) -> None:
     p.add_argument("--merge-kernel", choices=_MERGE_KERNELS, default=None,
                    help="post-exchange combine (default auto: block_merge wherever "
                         "the block kernel applies)")
-    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    if device:
+        p.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 
 def _introspection_flags(p: argparse.ArgumentParser) -> None:
@@ -217,6 +230,70 @@ def _config_flags(p: argparse.ArgumentParser) -> None:
                    help="disable the planner: every knob rides its flag/conf/default value "
                         "(conf AUTOTUNE=0; the planner is otherwise on, and explicit flags "
                         "win over it either way)")
+
+
+def _common_flags(p: argparse.ArgumentParser, device: bool = True, **knob_kw) -> None:
+    """The reference's ``common()`` flags (``bench``, ``coordinator``): the
+    knobs, the config flags, ``--dtype``, ``--mode``, the checkpoint and
+    journal flags and ``-o``, folded into the config by `_load_config`."""
+    _knobs(p, device, **knob_kw)
+    _config_flags(p)
+    p.add_argument("--dtype", default=None, help="key dtype (default int32, conf KEY_DTYPE)")
+    p.add_argument("--mode", choices=MODES, default="spmd",
+                   help="spmd (fused route under 2^20 keys, else the SPMD scheduler), "
+                        "taskpool or local")
+    p.add_argument("--checkpoint-dir",
+                   help="persist per-shard/range progress here (conf CHECKPOINT_DIR)")
+    p.add_argument("--job-id", help="checkpoint namespace")
+    p.add_argument("--journal", default=None,
+                   help="write the structured event journal (JSONL) here")
+    p.add_argument("--journal-rotate-mb", type=float,
+                   help="rotate the journal to PATH.N at this size (MiB)")
+    p.add_argument("-o", "--output", default=None,
+                   help="where sorted keys go (default output.txt, conf OUTPUT_PATH)")
+
+
+def _bench_flags(p: argparse.ArgumentParser) -> None:
+    """``bench``'s own flags: the size, the reps and one flag a mode
+    (`cli_bench`); ``--fleet-mixed`` waits on the fleet plane."""
+    p.add_argument("--n", type=int, default=1 << 22)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--memwatch", action="store_true",
+                   help="snapshot device memory at phase boundaries into hbm_watermark "
+                        "journal events")
+    p.add_argument("--suite", action="store_true",
+                   help="run the BASELINE config ladder (one JSON line each)")
+    p.add_argument("--device-resident", action="store_true",
+                   help="time the sort that keeps its result on the device and the "
+                        "on-device validation, one JSON line each")
+    p.add_argument("--exchange-ab", action="store_true",
+                   help="alltoall / ring / fused exchange A/B on the mesh (uniform, zipf, "
+                        "records; bit-identical gate, bytes_on_wire a schedule)")
+    p.add_argument("--serve-mixed", action="store_true",
+                   help="multi-tenant serving benchmark: a mixed small/large three-tenant "
+                        "workload through admission with slice packing; jobs/s, p95 queue "
+                        "wait, fairness, variant-cache hit rate, packed against serial")
+    p.add_argument("--analyze-smoke", action="store_true",
+                   help="the introspection plane's price: the same ring sort with and "
+                        "without the journal and ledger (overhead_frac < 5%% from 2^20 "
+                        "keys), plus the zipf-against-uniform skew margin")
+    p.add_argument("--coded-ab", action="store_true",
+                   help="coded-redundancy failure A/B: zipf at redundancy 1 against 2, "
+                        "healthy against one injected worker loss (bit-identical gate)")
+    p.add_argument("--coded-v2-ab", action="store_true",
+                   help="replicate against parity at redundancy 2: the wire premium "
+                        "(parity < 0.75x replicate), one loss a mode (local recovery), "
+                        "the straggler drill (p99 serve beats waiting on the owner)")
+    p.add_argument("--autotune-ab", action="store_true",
+                   help="planner A/B: zipf + uniform with the exchange hand-set to "
+                        "alltoall, to ring, and planner-chosen; gates the pick and "
+                        "autotune >= 0.95x the best hand-set arm from 2^20 keys")
+    p.add_argument("--hier-ab", action="store_true",
+                   help="flat ring against the two-level exchange at every HxD grouping "
+                        "of the mesh, plus the worker-loss and host-loss drills")
+    p.add_argument("--external-wave", action="store_true",
+                   help="the wave pipeline on a dataset 8x its per-wave budget: overlap "
+                        "on against off, and a mid-wave loss with run-granular repair")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -300,6 +377,13 @@ def _parser() -> argparse.ArgumentParser:
     batch.add_argument("--checkpoint-dir",
                        help="persist each finished file's result here; a re-run restores "
                             "them and sorts only the rest")
+    batch.add_argument("--mode", choices=MODES, default="spmd",
+                       help="accepted as the reference's batch accepts it; a batch is one "
+                            "BatchSampleSort program")
+    batch.add_argument("--job-id", help="accepted as the reference's batch accepts it; each "
+                                        "file checkpoints under its own basename")
+    batch.add_argument("-o", "--output", help="accepted as the reference's batch accepts it; "
+                                              "each file goes to OUTDIR/<basename>")
     tera = sub.add_parser("terasort", help="sort a binary 100-byte-record file")
     _common(tera, "terasort_out.bin")
     tera.add_argument("--external", action="store_true",
@@ -310,6 +394,8 @@ def _parser() -> argparse.ArgumentParser:
     tera.add_argument("--run-recs", type=int, default=1 << 20,
                       help="records per spilled run / per wave (external mode)")
     _store_flags(tera, "tera_external")
+    tera.add_argument("--conf", help="KEY=value conf file (EXCHANGE, HIER_HOSTS, EXTERNAL_* "
+                                     "keys; flags win)")
     ext = sub.add_parser("external", help="out-of-core sort of a raw binary key file")
     ext.add_argument("input")
     ext.add_argument("-o", "--output", required=True)
@@ -341,6 +427,7 @@ def _parser() -> argparse.ArgumentParser:
                      help="plane mode of coded waves: full copies or parity slots")
     ext.add_argument("--device", default=None, help="cuda (default) or cpu")
     _store_flags(ext, "external")
+    ext.add_argument("--conf", help="KEY=value conf file (EXTERNAL_* keys; flags win)")
     gen = sub.add_parser("gen", help="generate synthetic input files")
     gen.add_argument("n", type=int)
     gen.add_argument("-o", "--output", required=True)
@@ -383,24 +470,18 @@ def _parser() -> argparse.ArgumentParser:
                           "exit 1 on any violation")
     coord = sub.add_parser("coordinator", help="the native TCP coordinator: file names on "
                                                "stdin, sorted by a cluster of workers")
-    coord.add_argument("--workers", type=int, default=None,
-                       help="workers to wait for; each job is split into this many chunks "
-                            "(default 4)")
+    # The reference's common() flags; the coordinator reads the key dtype,
+    # the heartbeat timeout, the port and the output path of the config.
+    _common_flags(coord, device=False,
+                  workers_help="workers to wait for; each job is split into this many "
+                               "chunks (default 4)")
     coord.add_argument("--port", type=int, help="listening port (default 9008, conf "
                                                 "SERVER_PORT; 0 = any free port)")
     coord.add_argument("--join-timeout", type=float, default=60.0,
                        help="seconds to wait for the workers to join")
-    coord.add_argument("-o", "--output", default=None,
-                       help="where each job's sorted keys go (default output.txt, conf "
-                            "OUTPUT_PATH)")
-    coord.add_argument("--conf", help="KEY=value conf file (the reference's keys accepted)")
-    coord.add_argument("--dtype", default=None, help="key dtype of the files and of the "
-                                                     "workers' --dtype (default int32)")
-    coord.add_argument("--journal", default=None,
-                       help="write the session's event journal (JSONL) here, flushed "
-                            "after every job")
-    coord.add_argument("--journal-rotate-mb", type=float,
-                       help="rotate the journal to PATH.N at this size (MiB)")
+    bench = sub.add_parser("bench", help="throughput benchmark: JSON lines a mode (cli_bench)")
+    _common_flags(bench)
+    _bench_flags(bench)
     from dsort_tpu_torch.runtime.worker import add_worker_args
 
     add_worker_args(sub.add_parser("worker", help="a worker process: joins a coordinator "
@@ -1106,10 +1187,12 @@ def _external(args) -> int:
     """``external``: `ExternalSort`, or `ExternalWaveSort` with ``--mesh``."""
     import numpy as np
 
+    # Flags win over the conf's EXTERNAL_* keys, which win over the defaults.
+    conf = SortConfig.from_conf_file(args.conf).external if args.conf else ExternalConfig()
     ext = ExternalConfig(
-        run_elems=args.run_elems if args.run_elems is not None else ExternalConfig.run_elems,
-        wave_elems=args.wave_elems if args.wave_elems is not None else ExternalConfig.wave_elems,
-        mesh=args.mesh,
+        run_elems=args.run_elems if args.run_elems is not None else conf.run_elems,
+        wave_elems=args.wave_elems if args.wave_elems is not None else conf.wave_elems,
+        mesh=args.mesh if args.mesh is not None else conf.mesh,
     )
     if ext.mesh:
         from dsort_tpu_torch.models.wave_sort import ExternalWaveSort
@@ -1230,6 +1313,10 @@ def main(argv=None) -> int:
         return run_worker(args)
     if args.cmd == "coordinator":
         return _coordinator(args)
+    if args.cmd == "bench":
+        from dsort_tpu_torch.cli_bench import cmd_bench
+
+        return cmd_bench(args)
     knobs = {"exchange": args.exchange, "hier_hosts": args.hier_hosts,
              "redundancy": args.redundancy, "redundancy_mode": args.redundancy_mode}
     if args.cmd == "external":
@@ -1244,7 +1331,18 @@ def main(argv=None) -> int:
         args.dp = args.dp or cfg.mesh.dp
         return _batch(args, cfg.job)
     knobs.update(local_kernel=args.kernel, merge_kernel=args.merge_kernel)
-    job = JobConfig(**{k: v for k, v in knobs.items() if v})
+    knobs = {k: v for k, v in knobs.items() if v}
+    if args.conf:
+        # The conf's job keys (EXCHANGE, HIER_HOSTS, ...) under the flags, and
+        # EXTERNAL_MESH where --mesh is not given, as the reference reads them.
+        import dataclasses
+
+        conf = SortConfig.from_conf_file(args.conf)
+        job = dataclasses.replace(conf.job, **knobs)
+        if args.mesh is None:
+            args.mesh = conf.external.mesh
+    else:
+        job = JobConfig(**knobs)
     args.workers = args.workers or 8
     if args.external:
         return _terasort_external(args, job)
