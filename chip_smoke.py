@@ -208,7 +208,8 @@ Phases (any failure raises, so the exit code is non-zero):
    turns, a fresh cluster for each faulted turn); ``cli coordinator
    --workers 4`` with 4 ``cli worker`` processes over stdin, its output
    byte-identical to ``sort -n``, exit 0.
-15. ``bench`` (`bench_modes`): every mode but ``--fleet-mixed``, each
+15. ``bench`` (`bench_modes`): every mode but ``--fleet-mixed`` (phase
+   16.4), each
    ``python -m dsort_tpu_torch.cli bench ...`` in a process of its own on
    the card (through ``--bench-child``, which also keeps the run's launch
    counts) with ``--journal`` in a temporary directory: ``--suite --reps
@@ -228,6 +229,21 @@ Phases (any failure raises, so the exit code is non-zero):
    ``--autotune-ab``'s 0.95x): their readings are printed and kept out of
    the exit code, while the rest of those modes' gates, read again from
    their lines (`BENCH_TIMED`), still fail the run.
+16. the fleet plane (`fleet_plane`): two in-process `FleetAgent`s (a
+   `SortService` of 4 virtual workers each, ``exchange="fused"``) behind a
+   `FleetController` over loopback TCP with locality routing, 3 tenants x
+   4 jobs x 2 rounds of 2^19 / 2^18 int32 and the 2^26 job (numpy's bits,
+   jobs/s, the p95 queue wait per tenant, the fleet's cache hit rate, the
+   K1 / K2 / tile-merge / R1 launches); four ``cli fleet-agent --workers
+   4`` processes, a 2^24 job whose agent is killed (``kill -9``) as it
+   accepts the job, re-routed (``agent_lost``) and done on the survivor,
+   the time to recover in turns (healthy faulted faulted healthy); a
+   controller with a ``state_dir`` killed at its second accept and
+   restored by a new one (``controller_restore`` before any dispatch,
+   every job done once, numpy's bits); ``cli bench --fleet-mixed --n
+   2^19 --reps 2`` (exit 0, locality's hit rate above random's, health
+   verdicts; ``telemetry_overhead_frac`` printed, not gated); every
+   journal, merged on the peer clock blessings, against the contracts.
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -3820,6 +3836,332 @@ def bench_modes(card) -> None:
     log(f"phase 15 bench: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
+# Phase 16's sizes: the small jobs' two sizes, the agent-loss drill's job,
+# each job of the restart drill's backlog, and bench --fleet-mixed's --n.
+FLEET_SMALL = (1 << 19, 1 << 18)
+FLEET_DRILL, FLEET_RESTART, FLEET_BENCH_N = 1 << 24, 1 << 21, 1 << 19
+
+
+def _conform(label: str, journals: list) -> dict:
+    """Merge ``journals`` (record lists, the controller's first) on their
+    peer clock blessings and hold the merged trace to the contracts;
+    returns the scoped traces checked per contract."""
+    from dsort_tpu_torch.analysis.spec.contracts import conformance_report
+    from dsort_tpu_torch.obs.merge import merge_records
+
+    merged = merge_records(journals)
+    rep = conformance_report(merged)
+    if not rep["ok"]:
+        raise AssertionError(f"{label}: trace contract violated: {rep['violations'][:3]}")
+    return {k: v["checked"] for k, v in rep["contracts"].items() if v["checked"]}
+
+
+def kill_at(n: int, kill):
+    """A controller's journal (an `EventLog`) that calls ``kill(fields)``
+    at its ``n``-th ``job_dispatched`` (an agent accepted the job; its sort
+    has not ended), on the controller's own lane thread."""
+    from dsort_tpu_torch.utils.events import EventLog
+
+    class KillAt(EventLog):
+        seen = 0
+
+        def emit(self, etype, **fields):
+            ev = super().emit(etype, **fields)
+            if etype == "job_dispatched":
+                self.seen += 1
+                if self.seen == n:
+                    kill(fields)
+            return ev
+
+    return KillAt()
+
+
+def fleet_plane(card, x32, ref32, reset, counts, launched, keys_path, work,
+                device=None, agent_argv=()) -> None:
+    """Phase 16: the fleet plane on the card.
+
+    16.1 two in-process `FleetAgent`s, each a `SortService` of 4 virtual
+    workers on the card (``exchange="fused"``), behind a `FleetController`
+    over loopback TCP with locality routing: 3 tenants x 4 jobs x 2 rounds
+    of int32 at 2^19 and 2^18 keys and phase 4's 2^26 keys, submitted
+    together; every output numpy's bits, jobs/s, the p95 queue wait per
+    tenant, the fleet-wide cache hit rate, the launches (K1, K2, the tile
+    merge, R1).  16.2 four ``cli fleet-agent --workers 4`` processes: a
+    2^24 job whose agent is killed (``kill -9``) the moment it accepts the
+    job, re-routed (``agent_lost``) and done on the survivor; the time to
+    recover is the faulted wall less the healthy one, in turns (A B B A).
+    16.3 a controller with a ``state_dir`` killed at its second accept,
+    with a backlog of 16 x 2^21 jobs queued, restored by a new one:
+    ``controller_restore`` before any dispatch, every job done once.
+    16.4 ``cli bench --fleet-mixed``.  Every journal, merged on the peer
+    clock blessings, holds to the contracts.
+    ``device`` / ``agent_argv`` put the agents elsewhere (a rehearsal on
+    the CPU).
+    """
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from collections import Counter
+
+    from dsort_tpu_torch.config import JobConfig
+    from dsort_tpu_torch.fleet.agent import FleetAgent
+    from dsort_tpu_torch.fleet.controller import FleetController
+    from dsort_tpu_torch.utils.events import EventLog
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    tenants = ("acme", "blue", "coral")
+    scratch = Path(tempfile.mkdtemp(prefix="dsort_fleet_", dir=work))
+    checked: dict[str, int] = {}
+
+    def tally(got: dict) -> None:
+        for k, v in got.items():
+            checked[k] = checked.get(k, 0) + v
+
+    def records(log) -> list:
+        return [e.to_dict() for e in log.events()]
+
+    # The agent processes of 16.2 start now and come up during 16.1.
+    procs, addrs = [], {}
+    for i in range(4):
+        err = open(scratch / f"agent-{i}.stderr", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dsort_tpu_torch.cli", "fleet-agent", "--workers", "4",
+             "--port", "0", "--agent-id", f"agent-{i}", "--journal",
+             str(scratch / f"agent-{i}.jsonl"), *agent_argv],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True))
+        err.close()
+    try:
+        # 16.1 two agents in this process ------------------------------------
+        fleet_job = JobConfig(exchange="fused", settle_delay_s=0.01)
+        jlogs = [EventLog(), EventLog()]
+        agents = [FleetAgent(num_workers=4, device=device, job=fleet_job, agent_id=aid,
+                             journal=lg)
+                  for aid, lg in zip(("fleet-a", "fleet-b"), jlogs)]
+        cjournal = EventLog()
+        # autotune: the planner sizes each dispatch's send deadline from the
+        # accepts it has seen (1 s at least); its clock starts once the
+        # frame is sent, so the 2^26 job's 256 MB frame is not inside it.
+        ctl = FleetController([a.addr for a in agents], journal=cjournal, heartbeat_s=0.5,
+                              max_queue_depth=64, max_tenant_inflight=32, autotune=True)
+        jobs = [(tenants[i % 3], random_keys(rng, FLEET_SMALL[(i // 3) % 2], np.int32))
+                for i in range(24)] + [("acme", x32)]
+        refs = [np.sort(d) if d is not x32 else ref32 for _, d in jobs]
+        reset()
+        t0 = time.perf_counter()
+        tickets = [ctl.submit(d, tenant=t)[1] for t, d in jobs]
+        outs = [tk.result(timeout=600) for tk in tickets]
+        wall = time.perf_counter() - t0
+        got = launched("16.1 fleet window", keys_path | {"ring_exchange_kernel"})
+        if not all(same_bits(o, r) for o, r in zip(outs, refs)):
+            raise AssertionError("fleet 16.1: an output differs from numpy")
+        ctl.shutdown(drain=True, timeout=120)
+        hits = sum(a.service.variants.stats()["hits"] for a in agents)
+        looks = hits + sum(a.service.variants.stats()["misses"] for a in agents)
+        for a in agents:
+            a.close()
+        deq = [e.fields for e in cjournal.events() if e.type == "job_dequeued"]
+        p95 = {t: float(np.percentile([f["wait_s"] for f in deq if f["tenant"] == t], 95))
+               for t in tenants}
+        routed = [e.fields for e in cjournal.events() if e.type == "job_routed"]
+        big = [r for r in routed if r["n_keys"] == len(x32)]
+        accepts = {e.fields["job_id"]: e.fields["accept_latency_s"] for e in cjournal.events()
+                   if e.type == "job_dispatched"}
+        deadlines = [e.fields["chosen"] for e in cjournal.events() if e.type == "plan_decision"
+                     and e.fields["policy"] == "dispatch_timeout_s"]
+        if any(e.type == "job_rerouted" for e in cjournal.events()):
+            raise AssertionError("fleet 16.1: a job was re-routed on a healthy fleet")
+        log(f"fleet 16.1 2 agents x 4 virtual workers (locality): 24 small jobs (3 tenants, "
+            f"{' / '.join(f'2^{n.bit_length() - 1}' for n in FLEET_SMALL)} int32) + 1 big "
+            f"({len(x32)} keys -> {big[0]['agent']}, {big[0]['reason']}) in "
+            f"{wall * 1e3:.3f} ms = {len(jobs) / wall:.3f} jobs/s, every output equal to numpy; "
+            f"routes {dict(Counter((r['agent'], r['reason']) for r in routed))}; queue wait p95 "
+            f"per tenant { {t: round(v * 1e3, 3) for t, v in p95.items()} } ms; fleet cache "
+            f"hit rate {hits / max(looks, 1):.3f} ({hits}/{looks}); accept latency: the big job "
+            f"{accepts[big[0]['job_id']] * 1e3:.3f} ms, the small jobs' max "
+            f"{max(v for k, v in accepts.items() if k != big[0]['job_id']) * 1e3:.3f} ms; planned "
+            f"send deadlines {min(deadlines):.3f}-{max(deadlines):.3f} s; launches {got} [{card}]")
+        tally(_conform("fleet 16.1", [records(cjournal)] + [records(lg) for lg in jlogs]))
+
+        # 16.2 agent loss: four agent processes -------------------------------
+        for i, p in enumerate(procs):
+            line = p.stdout.readline()
+            if "listening on" not in line:
+                raise AssertionError(f"fleet agent {i} did not start: {line!r} "
+                                     f"{(scratch / f'agent-{i}.stderr').read_text()[-2000:]}")
+            addrs[f"agent-{i}"] = line.strip().rsplit(" ", 1)[-1]
+        x24 = x32[:FLEET_DRILL]
+        ref24 = np.sort(x24)
+        for aid, addr in addrs.items():  # each agent's first big job, untimed
+            warm = FleetController([addr], heartbeat_s=60)
+            if not same_bits(warm.submit(x24, tenant="warm")[1].result(timeout=300), ref24):
+                raise AssertionError(f"fleet 16.2 warm-up on {aid} differs from numpy")
+            warm.shutdown(drain=True, timeout=60)
+        pids = {f"agent-{i}": p for i, p in enumerate(procs)}
+
+
+        def kill_agent(fields):
+            pids[fields["agent"]].send_signal(signal.SIGKILL)
+
+        turns, c_logs = [], []
+        for kind, pair in (("healthy", ("agent-0", "agent-1")), ("faulted", ("agent-0", "agent-1")),
+                           ("faulted", ("agent-1", "agent-2")), ("healthy", ("agent-2", "agent-3"))):
+            lg = kill_at(1, kill_agent) if kind == "faulted" else EventLog()
+            ctl = FleetController([addrs[a] for a in pair], journal=lg, heartbeat_s=60)
+            t0 = time.perf_counter()
+            verdict, ticket = ctl.submit(x24, tenant="drill")
+            out = ticket.result(timeout=300)
+            turns.append((kind, (time.perf_counter() - t0) * 1e3))
+            ctl.shutdown(drain=True, timeout=60)
+            c_logs.append(records(lg))
+            seq = [(r["type"], r.get("agent") or r.get("frm"), r.get("reason"))
+                   for r in c_logs[-1] if r["type"] in ("job_routed", "job_rerouted", "job_done")]
+            if not same_bits(out, ref24):
+                raise AssertionError(f"fleet 16.2 {kind} turn over {pair}: output differs")
+            want = ([("job_routed", pair[0], "size"), ("job_done", None, None)] if kind == "healthy"
+                    else [("job_routed", pair[0], "size"), ("job_rerouted", pair[0], "agent_lost"),
+                          ("job_routed", pair[1], "size"), ("job_done", None, None)])
+            if seq != want:
+                raise AssertionError(f"fleet 16.2 {kind} turn over {pair}: {seq} != {want}")
+            if kind == "faulted":
+                rc = pids[pair[0]].wait(timeout=60)
+                if rc != -signal.SIGKILL:
+                    raise AssertionError(f"fleet 16.2: {pair[0]} exited {rc}, not killed")
+        for aid in ("agent-2", "agent-3"):
+            pids[aid].send_signal(signal.SIGTERM)
+            if pids[aid].wait(timeout=120) != 0:
+                raise AssertionError(f"fleet 16.2: {aid} did not drain to exit 0 on SIGTERM")
+        a_logs = [EventLog.read_jsonl(str(scratch / f"agent-{i}.jsonl"))
+                  if (scratch / f"agent-{i}.jsonl").exists() else [] for i in range(4)]
+        # The survivors of the faulted turns ran the re-routed job to its end.
+        for lg, survivor in ((c_logs[1], 1), (c_logs[2], 2)):
+            jid = next(r["job_id"] for r in lg if r["type"] == "job_admitted")
+            job = {r["job"] for r in a_logs[survivor] if r["type"] == "job_start"
+                   and r.get("job_id") == jid}
+            if not job or not any(r["type"] == "job_done" and r["job"] in job
+                                  for r in a_logs[survivor]):
+                raise AssertionError(f"fleet 16.2: no job_done for {jid} on agent-{survivor}")
+        med = {k: float(np.median([t for n, t in turns if n == k])) for k in ("healthy", "faulted")}
+        log(f"fleet 16.2 kill -9 of the agent holding a 2^{FLEET_DRILL.bit_length() - 1} int32 "
+            f"job (cli fleet-agent "
+            f"--workers 4 processes): re-routed (agent_lost), done on the survivor, equal to "
+            f"numpy; walls in turns {[(k, round(t, 3)) for k, t in turns]} ms; time to recover "
+            f"{med['faulted'] - med['healthy']:.3f} ms (faulted {med['faulted']:.3f} - healthy "
+            f"{med['healthy']:.3f}, medians of 2) [{card}]")
+        tally(_conform("fleet 16.2", c_logs + a_logs))
+
+        # 16.3 controller restart -------------------------------------------
+        jlogs = [EventLog(), EventLog()]
+        agents = [FleetAgent(num_workers=4, device=device, job=fleet_job, agent_id=aid,
+                             journal=lg)
+                  for aid, lg in zip(("restart-a", "restart-b"), jlogs)]
+        state_dir = str(scratch / "state")
+        backlog = [(tenants[i % 3], x32[i * FLEET_RESTART:(i + 1) * FLEET_RESTART])
+                   for i in range(16)]
+        refs, outputs = {}, {}
+
+        class Keeping(FleetController):
+            """Keeps every output it completes, by job id."""
+
+            def _finish_ok(self, job, out, link):
+                outputs[job.jid] = out
+                super()._finish_ok(job, out, link)
+
+        # Killed from its own lane at the second accept: mid-backlog.
+        killed = threading.Event()
+
+        def kill_controller(fields):
+            ctl.kill()
+            killed.set()  # kill() returned: the state on disk is final
+
+        j1 = kill_at(2, kill_controller)
+        ctl = Keeping([a.addr for a in agents], state_dir=state_dir, journal=j1,
+                      heartbeat_s=60, start=False)
+        for t, d in backlog:
+            refs[ctl.submit(d, tenant=t)[1].jid] = np.sort(d)
+        ctl.start()
+        if not killed.wait(120):
+            raise AssertionError("fleet 16.3: no second accept within 120 s")
+        state = json.loads((Path(state_dir) / "controller_state.json").read_text())
+        at_kill = Counter(j["status"] for j in state["jobs"].values())
+        j2 = EventLog()
+        t0 = time.perf_counter()
+        ctl2 = Keeping([a.addr for a in agents], state_dir=state_dir, journal=j2,
+                       heartbeat_s=60)
+        with ctl2._cv:
+            ctl2._cv.wait_for(lambda: ctl2.stats()["done"] + ctl2.stats()["failed"]
+                              >= len(state["jobs"]), timeout=300)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        st2 = ctl2.stats()
+        ctl2.shutdown(drain=True, timeout=120)
+        for a in agents:
+            a.close()
+        # The results: the first controller's tickets for jobs done before
+        # the kill, else the agents' outputs as the second one took them.
+        done_first = {r["job_id"] for r in records(j1) if r["type"] == "job_routed"} - set(
+            state["jobs"])
+        starts = Counter(r.get("job_id") for lg in jlogs for r in records(lg)
+                         if r["type"] == "job_start" and r.get("mode") == "serve")
+        if st2["failed"] or st2["done"] != len(state["jobs"]) or set(starts) != set(refs) or set(
+                starts.values()) != {1}:
+            raise AssertionError(f"fleet 16.3: restored {st2}, persisted {len(state['jobs'])} "
+                                 f"jobs, agent job_starts {dict(starts)}")
+        if set(outputs) != set(refs) or not all(same_bits(outputs[j], r) for j, r in refs.items()):
+            raise AssertionError(f"fleet 16.3: {len(outputs)} of {len(refs)} outputs, or one "
+                                 "differs from numpy")
+        merged = [records(j1), records(j2)] + [records(lg) for lg in jlogs]
+        got16 = _conform("fleet 16.3", merged)
+        if got16.get("controller_restore") != 1:
+            raise AssertionError(f"fleet 16.3: controller_restore contract checked {got16}")
+        tally(got16)
+        restore = next(r for r in records(j2) if r["type"] == "controller_restore")
+        log(f"fleet 16.3 controller killed at its second accept, persisted "
+            f"{at_kill['inflight']} in flight + {at_kill['queued']} queued of 16 x "
+            f"2^{FLEET_RESTART.bit_length() - 1} int32 (state_dir), "
+            f"{len(done_first)} done before the kill; the new controller restored "
+            f"{restore['queued']} queued + {restore['inflight']} in flight before any dispatch "
+            f"and finished them in {restore_ms:.3f} ms; one job_start per job on the agents, "
+            f"all {len(outputs)} outputs equal to numpy [{card}]")
+
+        # 16.4 bench --fleet-mixed ------------------------------------------
+        journal, counts_path = scratch / "bench.jsonl", scratch / "bench.counts.json"
+        argv = ["bench", "--fleet-mixed", "--n", str(FLEET_BENCH_N), "--reps", "2",
+                "--journal", str(journal), *agent_argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--bench-child",
+                               str(counts_path), *argv], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+        for ln in lines:
+            log(f"fleet 16.4 {json.dumps(ln)} [{card}]")
+        got = json.loads(counts_path.read_text()) if counts_path.exists() else {}
+        gates = len(lines) == 2 and all(ln["bit_identical"] is True for ln in lines) and (
+            lines[0]["cache_hit_rate"] > lines[0]["cache_hit_rate_random"]
+            and lines[1]["health_verdicts"] > 0)
+        missing = [k for k in keys_path if not got.get(k)]
+        log(f"fleet 16.4 bench --fleet-mixed --n {FLEET_BENCH_N} --reps 2: exit "
+            f"{proc.returncode} in {wall:.1f} s, gates {gates}, telemetry_overhead_frac "
+            f"{lines[0]['telemetry_overhead_frac'] if lines else None} (not gated), launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})} [{card}]")
+        if proc.returncode != 0 or not gates or missing:
+            raise AssertionError(f"16.4 bench --fleet-mixed: exit {proc.returncode}, gates "
+                                 f"{gates}, kernels not launched {missing}\n"
+                                 f"{proc.stderr[-3000:]}")
+        tally(_conform("fleet 16.4", [EventLog.read_jsonl(str(journal))]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            p.stdout.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"fleet 16.5 trace contracts over every phase-16 journal (merged on the peer clock "
+        f"blessings): no violation; scoped traces checked {checked}")
+    log(f"phase 16 fleet: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4791,6 +5133,9 @@ def main() -> int:
     # 15. bench ---------------------------------------------------------------------
     torch.cuda.empty_cache()  # the modes run in processes of their own on this card
     bench_modes(card)
+
+    # 16. the fleet plane -----------------------------------------------------------
+    fleet_plane(card, x32, ref32, reset, counts, launched, keys_path, work)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

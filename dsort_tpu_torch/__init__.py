@@ -10,7 +10,7 @@ Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
 the fused small-job route, the task pool, local — and ``--device-resident``;
 ``dsort serve``; ``dsort batch``; ``dsort terasort`` and ``dsort external``;
 ``dsort validate`` and ``dsort gen``; ``dsort coordinator`` and ``dsort
-worker``):
+worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig``, ``ServeConfig``, ``SortConfig`` and the
@@ -48,14 +48,18 @@ worker``):
   obs/                 telemetry and its metrics endpoint, SLO histograms,
                        the flight recorder, the first-call ledger, the
                        planner (``autotune``)
+  fleet/               the fleet plane: the framed-JSON protocol, the torch-free
+                       ``FleetController`` (routing, restart-safe state) and
+                       ``FleetAgent`` (a ``SortService`` behind a TCP port)
   utils/events.py      ``EventLog``: the JSONL event journal
   runtime/             the native C++ runtime (k-way merges, text IO, record
                        hashes, worker table, TCP coordinator; built with g++
                        at first use), ``NativeCoordinator`` and the worker
                        process (``SortWorker``, sorting on the card)
   cli.py               ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,
-                       external,coordinator,worker} ...`` (``run --mode spmd|taskpool|local``,
-                       ``run --device-resident``), ``validate``, ``gen``
+                       external,coordinator,worker,fleet,fleet-agent,bench} ...``
+                       (``run --mode spmd|taskpool|local``, ``run --device-resident``),
+                       ``validate``, ``gen``, ``report``, ``top``
 """
 
 from dsort_tpu_torch.config import ConfigError, JobConfig

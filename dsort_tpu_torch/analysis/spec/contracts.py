@@ -14,9 +14,9 @@ tokens are event names plus ``( ) | ? * +`` — matched against the scoped
 trace: records grouped by ``(src, *scope-fields)``, filtered to the
 contract's alphabet (the set of names the steps mention), in journal
 order.  ``when`` gates applicability: a trace is only checked when it
-contains at least one trigger event.  Some names belong to planes the
-port does not run (the fleet's ``job_routed`` / ``controller_restore``);
-their contracts are then never triggered.
+contains at least one trigger event.  The fleet's ``job_routed`` /
+``controller_restore`` contracts trigger on the journals of
+`fleet.FleetController`.
 """
 
 from __future__ import annotations

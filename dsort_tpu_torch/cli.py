@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,bench,validate,gen,report,top} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,fleet,fleet-agent,bench,validate,gen,report,top} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -85,11 +85,30 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   torch|numpy] [--kernel K] [--device cpu]``: one worker process
   (`runtime.worker`): it joins the coordinator and sorts each chunk on the
   card (``--backend torch``, the default) until the coordinator stops.
+- ``fleet-agent [--workers N] [--host H] [--port P] [--agent-id ID]
+  [--metrics-port P] [--prewarm [auto|all]] [--slice-devices S]
+  [--queue-limit Q] [--tenant-limit T] [--journal J]``: one fleet
+  execution agent (`_fleet_agent`): a `fleet.FleetAgent` over a
+  `serve.SortService` of ``N`` virtual workers on the card, listening for
+  a controller on ``H:P`` (``P`` 0 = any free port; the bound address is
+  printed as ``fleet agent ID listening on H:P``).  SIGINT and SIGTERM
+  drain it: the queued and in-flight jobs finish, new submits are refused
+  with ``shutting_down``, and it exits 0;
+- ``fleet --agents H:P,... [--state-dir D] [--routing
+  locality|random|health] [--no-health-telemetry] [--dispatch-timeout S]
+  [--max-in-flight N] [--queue-limit Q] [--tenant-limit T] [--weights W]
+  [--slo-shed-ms MS] [--metrics-port P] [-o OUT] [--journal J]``: the
+  fleet controller's REPL (`_fleet`): ``serve``'s loop, each stdin line
+  ``[tenant=NAME] PATH`` submitted to a `fleet.FleetController` (conf
+  ``FLEET_*`` keys under the flags), which routes it to an agent; with
+  ``--state-dir`` a restarted controller loses no job.  The controller
+  sorts nothing and never imports torch;
 - ``bench [--n N] [--reps R] [MODE]``: the reference's benchmark
   (`cli_bench`): the plain mode (``--mode`` sorter over ``--n`` uniform
   keys), ``--suite``, ``--device-resident``, ``--exchange-ab``,
   ``--coded-ab``, ``--coded-v2-ab``, ``--hier-ab``, ``--autotune-ab``,
-  ``--serve-mixed``, ``--analyze-smoke``, ``--external-wave``; JSON lines
+  ``--serve-mixed``, ``--analyze-smoke``, ``--external-wave``,
+  ``--fleet-mixed``; JSON lines
   with the reference's names and keys, the exit code the mode's gates.
 
 The sorting subcommands take ``--journal J``, ``--journal-rotate-mb N``
@@ -255,7 +274,7 @@ def _common_flags(p: argparse.ArgumentParser, device: bool = True, **knob_kw) ->
 
 def _bench_flags(p: argparse.ArgumentParser) -> None:
     """``bench``'s own flags: the size, the reps and one flag a mode
-    (`cli_bench`); ``--fleet-mixed`` waits on the fleet plane."""
+    (`cli_bench`)."""
     p.add_argument("--n", type=int, default=1 << 22)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--memwatch", action="store_true",
@@ -294,6 +313,11 @@ def _bench_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--external-wave", action="store_true",
                    help="the wave pipeline on a dataset 8x its per-wave budget: overlap "
                         "on against off, and a mid-wave loss with run-granular repair")
+    p.add_argument("--fleet-mixed", action="store_true",
+                   help="fleet benchmark: two in-process agents, each a SortService over "
+                        "half the workers, behind a FleetController over loopback TCP; "
+                        "locality against random routing (cache hit rates), the health "
+                        "plane's overhead and a health-routing arm (bit-identical gate)")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -479,6 +503,61 @@ def _parser() -> argparse.ArgumentParser:
                                                 "SERVER_PORT; 0 = any free port)")
     coord.add_argument("--join-timeout", type=float, default=60.0,
                        help="seconds to wait for the workers to join")
+    agent = sub.add_parser("fleet-agent", help="fleet execution agent: a SortService on the "
+                                               "card served to a fleet controller")
+    _common_flags(agent)
+    agent.add_argument("--host", default="127.0.0.1",
+                       help="bind address for the fleet protocol endpoint")
+    agent.add_argument("--port", type=int, default=0,
+                       help="fleet protocol port (0 = any free port, printed at startup)")
+    agent.add_argument("--agent-id",
+                       help="stable agent identity (default: generated); a restarted agent "
+                            "keeps its routing identity by reusing the id")
+    agent.add_argument("--metrics-port", type=int,
+                       help="serve this agent's live telemetry on this localhost port "
+                            "(render the fleet with `top URL...`)")
+    agent.add_argument("--prewarm", nargs="?", const="auto", choices=("auto", "all"),
+                       help="run the fused rungs once on every slice at startup, advertised "
+                            "to the controller for locality routing: 'auto' the planner's "
+                            "predicted set, 'all' the exhaustive ladder")
+    agent.add_argument("--slice-devices", type=int,
+                       help="virtual workers per small-job slice")
+    agent.add_argument("--queue-limit", type=int, help="this agent's local queue bound")
+    agent.add_argument("--tenant-limit", type=int, help="this agent's local per-tenant bound")
+    agent.add_argument("--weights", help=argparse.SUPPRESS)
+    agent.add_argument("--slo-shed-ms", type=float, help=argparse.SUPPRESS)
+    agent.add_argument("--max-in-flight", type=int, help=argparse.SUPPRESS)
+    fleet = sub.add_parser("fleet", help="fleet controller REPL: route jobs over fleet agents; "
+                                         "restart-safe")
+    # The controller sorts nothing: no --device.
+    _common_flags(fleet, device=False)
+    fleet.add_argument("--agents", help="agent endpoints host:port,host:port (conf "
+                                        "FLEET_AGENTS)")
+    fleet.add_argument("--state-dir",
+                       help="persist the control-plane state here so a controller restart "
+                            "loses no job (conf FLEET_STATE_DIR)")
+    fleet.add_argument("--routing", choices=["locality", "random", "health"],
+                       help="variant-cache-locality routing (default), the random A/B "
+                            "baseline, or health: locality for small jobs plus big jobs "
+                            "placed by the live straggler verdicts (conf FLEET_ROUTING)")
+    fleet.add_argument("--no-health-telemetry", action="store_true",
+                       help="heartbeats only: do not opt agents into the health plane's "
+                            "delta stream (conf FLEET_TELEMETRY=0)")
+    fleet.add_argument("--dispatch-timeout", type=float,
+                       help="per-agent send deadline in seconds: a stuck-but-connected agent "
+                            "fails over after this long (conf FLEET_DISPATCH_TIMEOUT_S; "
+                            "default: the request timeout)")
+    fleet.add_argument("--metrics-port", type=int,
+                       help="serve the controller's telemetry on this localhost port")
+    fleet.add_argument("--max-in-flight", type=int, default=1,
+                       help="REPL jobs in flight at once (as serve's)")
+    fleet.add_argument("--queue-limit", type=int,
+                       help="admission control: most jobs queued fleet-wide")
+    fleet.add_argument("--tenant-limit", type=int,
+                       help="admission control: most queued + running jobs a tenant")
+    fleet.add_argument("--weights", help="fair-scheduler tenant weights, e.g. acme=2,blue=1")
+    fleet.add_argument("--slo-shed-ms", type=float,
+                       help="admission shedding target (ms, a tenant's live p95 queue wait)")
     bench = sub.add_parser("bench", help="throughput benchmark: JSON lines a mode (cli_bench)")
     _common_flags(bench)
     _bench_flags(bench)
@@ -812,7 +891,7 @@ def _make_serve_service(args, cfg: SortConfig, journal, telemetry):
                         ("tenant_limit", "max_tenant_inflight"), ("slo_shed_ms", "slo_shed_ms")):
         if getattr(args, flag, None):
             serve_over[field] = getattr(args, flag)
-    if args.weights:
+    if getattr(args, "weights", None):
         serve_over["tenant_weights"] = parse_weights(args.weights)
     if args.prewarm == "all":
         serve_over["prewarm_policy"] = "all"
@@ -826,7 +905,7 @@ def _make_serve_service(args, cfg: SortConfig, journal, telemetry):
         service = SortService(
             runner=_make_sorter(cfg.job, args.mode, workers, args.device), **kwargs
         )
-    if args.memwatch:
+    if getattr(args, "memwatch", False):
         from dsort_tpu_torch.obs.prof import MemWatch
 
         service.job_taps.append(MemWatch())
@@ -948,6 +1027,134 @@ def _serve_loop(args, cfg: SortConfig, service) -> int:
     service.shutdown(drain=True)
     reap(limit=1)
     return 0
+
+
+def _fleet_agent(args, cfg: SortConfig) -> int:
+    """``fleet-agent``: one execution agent (`fleet.FleetAgent`) over the
+    serving core on the card (`_make_serve_service`: ``--workers`` virtual
+    workers in slices), serving jobs a ``fleet`` controller routes to it.
+    It advertises its variant-cache keys and first-call ledger labels in
+    heartbeats, for the controller's locality routing; ``--metrics-port``
+    serves its live telemetry (``top URL1 URL2 ...`` renders the fleet).
+    SIGINT / SIGTERM drain: queued and in-flight jobs complete (results
+    held for the controller), new fleet submits are refused with
+    ``shutting_down``, and the agent exits 0."""
+    import signal
+
+    from dsort_tpu_torch.fleet.agent import FleetAgent
+
+    journal = _open_journal(args)
+    telemetry = server = None
+    if args.metrics_port is not None:
+        from dsort_tpu_torch.obs import MetricsServer, Telemetry
+
+        telemetry = Telemetry()
+        server = MetricsServer(telemetry, port=args.metrics_port)
+        log.info("agent metrics endpoint: %s", server.url)
+    service = _make_serve_service(args, cfg, journal, telemetry)
+    agent = FleetAgent(service=service, host=args.host, port=args.port,
+                       agent_id=args.agent_id, journal=journal, journal_path=args.journal)
+    print(f"fleet agent {agent.agent_id} listening on {agent.addr}", flush=True)
+    stop = threading.Event()
+    old = {}
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            old[sig] = signal.signal(sig, lambda signum, frame: stop.set())
+        except ValueError:
+            pass  # not the main thread
+    try:
+        stop.wait()
+        log.warning("agent %s draining before exit", agent.agent_id)
+        agent.close(drain=True)
+    finally:
+        for sig, handler in old.items():
+            signal.signal(sig, handler)
+        if journal is not None:
+            journal.flush_jsonl(args.journal)
+        if server is not None:
+            server.close()
+    return 0
+
+
+def _fleet(args, cfg: SortConfig) -> int:
+    """``fleet``: ``serve``'s REPL over a `fleet.FleetController`, which
+    routes each job to one of ``--agents`` (conf ``FLEET_AGENTS``).  The
+    controller is a pure control plane (admission, weighted-DRR fairness,
+    SLO shedding, locality routing) and imports no torch.  With
+    ``--state-dir`` every transition persists, so a restarted controller
+    loses no job: in-flight work keeps running on its agents and
+    re-attaches through the journaled job ids, queued jobs drain in the
+    same DRR order.  SIGINT / SIGTERM drain as ``serve``'s."""
+    import dataclasses
+    import signal
+
+    from dsort_tpu_torch.fleet.controller import FleetController
+    from dsort_tpu_torch.serve.fair import parse_weights
+
+    journal = _open_journal(args)
+    over: dict = {}
+    for flag, field in (("state_dir", "state_dir"), ("routing", "routing"),
+                        ("dispatch_timeout", "dispatch_timeout_s")):
+        if getattr(args, flag, None):
+            over[field] = getattr(args, flag)
+    if args.no_health_telemetry:
+        over["telemetry"] = False
+    fleet_cfg = dataclasses.replace(cfg.fleet, **over)
+    agents = args.agents or ",".join(fleet_cfg.agents)
+    if not agents:
+        raise SystemExit("fleet needs --agents host:port,... (or conf FLEET_AGENTS)")
+    telemetry = server = None
+    if args.metrics_port is not None:
+        from dsort_tpu_torch.obs import MetricsServer, Telemetry
+
+        telemetry = Telemetry()
+        server = MetricsServer(telemetry, port=args.metrics_port)
+        log.info("controller metrics endpoint: %s", server.url)
+    job = cfg.job
+    controller = FleetController(
+        agents,
+        state_dir=fleet_cfg.state_dir,
+        max_queue_depth=args.queue_limit or cfg.serve.max_queue_depth,
+        max_tenant_inflight=args.tenant_limit or cfg.serve.max_tenant_inflight,
+        drr_quantum_keys=cfg.serve.drr_quantum_keys,
+        tenant_weights=(parse_weights(args.weights) if args.weights
+                        else dict(cfg.serve.tenant_weights)),
+        slo_shed_ms=args.slo_shed_ms or cfg.serve.slo_shed_ms,
+        routing=fleet_cfg.routing,
+        heartbeat_s=fleet_cfg.heartbeat_s,
+        dispatch_timeout_s=fleet_cfg.dispatch_timeout_s,
+        default_tenant=job.tenant,
+        journal=journal,
+        journal_path=args.journal,
+        telemetry=telemetry,
+        health_telemetry=fleet_cfg.telemetry,
+        flight_dir=job.flight_recorder_dir,
+        # The planner's redundancy per dispatch (obs.plan): an explicit
+        # --redundancy / conf REDUNDANCY is forwarded as it is and journals
+        # a plan_override per dispatch.
+        autotune=job.autotune,
+        redundancy=job.redundancy if job.is_explicit("redundancy") else None,
+        redundancy_mode=job.redundancy_mode if job.is_explicit("redundancy_mode") else None,
+    )
+    if controller.stats()["agents"] == 0:
+        log.warning(
+            "no agents reachable: submissions are rejected with the verdict 'no_capacity' "
+            "until one connects (heartbeat retries every %.1fs)", fleet_cfg.heartbeat_s,
+        )
+    old_term = None
+    try:
+        old_term = signal.signal(signal.SIGTERM, _sigterm_to_interrupt)
+    except ValueError:
+        pass
+    try:
+        # The controller has the service's REPL surface (submit, stats,
+        # shutdown, future-style tickets): serve's loop drives it as it is.
+        return _serve_loop(args, cfg, controller)
+    finally:
+        if old_term is not None:
+            signal.signal(signal.SIGTERM, old_term)
+        if server is not None:
+            server.close()
 
 
 def _gen(args) -> int:
@@ -1321,9 +1528,13 @@ def main(argv=None) -> int:
              "redundancy": args.redundancy, "redundancy_mode": args.redundancy_mode}
     if args.cmd == "external":
         return _external(args)
-    if args.cmd in ("run", "batch", "serve"):
+    if args.cmd == "fleet":
+        return _fleet(args, _load_config(args))
+    if args.cmd in ("run", "batch", "serve", "fleet-agent"):
         cfg = _load_config(args)
         args.workers = cfg.mesh.num_workers or 8
+        if args.cmd == "fleet-agent":
+            return _fleet_agent(args, cfg)
         if args.cmd == "run":
             return _run(args, cfg.job)
         if args.cmd == "serve":

@@ -25,10 +25,14 @@ one-sided).  The exit code follows the mode's gates.
 - ``--analyze-smoke``: the introspection plane's price and the analyzer end
   to end;
 - ``--external-wave``: the wave pipeline on a file 8 times its per-wave
-  budget, overlap on against off, and a mid-wave loss.
+  budget, overlap on against off, and a mid-wave loss;
+- ``--fleet-mixed``: two `fleet.FleetAgent`s, each a `serve.SortService`
+  over half the workers on the card, behind a `fleet.FleetController` over
+  loopback TCP, under locality, random and health routing
+  (`_bench_fleet_mixed`).
 
 Each mode flag is a benchmark of its own: `cmd_bench` refuses two at once
-with the reference's texts.  ``--fleet-mixed`` waits on the fleet plane.
+with the reference's texts.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ _REF_KEYS_PER_SEC = 16_384 / 0.374
 #: The mode flags in the reference's precedence: a mode refuses every flag
 #: before it in this list, and of several modes given the last one decides.
 _MODES = ("suite", "device_resident", "exchange_ab", "serve_mixed", "analyze_smoke",
-          "external_wave", "coded_ab", "autotune_ab", "hier_ab", "coded_v2_ab")
+          "external_wave", "fleet_mixed", "coded_ab", "autotune_ab", "hier_ab", "coded_v2_ab")
 
 
 def _emit(line: dict) -> None:
@@ -1063,6 +1067,147 @@ def _bench_serve_mixed(args, cfg: SortConfig) -> int:
     return 0 if ok else 1
 
 
+def _bench_fleet_mixed(args, cfg: SortConfig) -> int:
+    """``--fleet-mixed``: the fleet benchmark, the reference's arms.
+
+    Two execution agents, each a real `fleet.FleetAgent` over a
+    `serve.SortService` of half the ``--workers`` on the card (its own
+    slices and streams), spoken to over loopback TCP, behind a
+    `fleet.FleetController`, driven with a mixed workload (4 small jobs x
+    3 tenants at two repeat sizes, twice, plus one 2^20-key job for a
+    ``big_jobs`` agent) under ``random`` (run first, so the later arms run
+    warm), ``locality`` and ``health`` routing.  The A/B axis is variant-
+    cache locality: under locality the repeat sizes stick to the agent that
+    already ran their rung, under random they scatter.  Exit 1 unless every
+    output is numpy's bits, locality's fleet-wide hit rate is above
+    random's, and the health arm journaled verdicts.  A heartbeats-only
+    locality arm (telemetry off) against the locality arm gives
+    ``telemetry_overhead_frac`` (min over ``--reps`` a side; printed, not
+    gated, as the reference's); the p95 queue wait and the tenants' p95
+    ratio come from the controller's ``job_dequeued`` records.
+    """
+    from dsort_tpu_torch.fleet.agent import FleetAgent
+    from dsort_tpu_torch.fleet.controller import FleetController
+    from dsort_tpu_torch.serve import SortService
+    from dsort_tpu_torch.utils.events import EventLog
+
+    n_devs = _workers(cfg)
+    _needs(n_devs, 2, "--fleet-mixed", "at least 2 workers (each agent owns half of them)")
+    device = getattr(args, "device", None)
+    half = max(n_devs // 2, 1)
+    n_small = max(min(args.n, 1 << 19), 1 << 10)
+    n_large = 1 << 20  # >= FLEET_SMALL_JOB_MAX: routes by size
+    tenants = ("acme", "blue", "coral")
+    rng = np.random.default_rng(0)
+    # Two repeat sizes x two rounds: repeats are where locality must show
+    # its cache hits over random.
+    small_jobs = []
+    for _ in range(2):
+        for j in range(4):
+            for t in tenants:
+                n = n_small if j % 2 == 0 else max(n_small // 2, 1 << 9)
+                small_jobs.append((t, rng.integers(0, 1 << 30, n).astype(np.int32)))
+    large = rng.integers(0, 1 << 30, n_large).astype(np.int32)
+    jobs = small_jobs + [("acme", large)]
+    refs = [np.sort(d) for _, d in jobs]
+    serve_cfg = dataclasses.replace(
+        cfg.serve,
+        max_queue_depth=max(cfg.serve.max_queue_depth, len(small_jobs) + 8),
+        max_tenant_inflight=max(cfg.serve.max_tenant_inflight, len(small_jobs) + 2),
+    )
+    journal = _open_journal(args) or EventLog()
+
+    def run_arm(routing: str, arm_journal, td: str, name: str, telemetry_on: bool = True):
+        agents = [
+            FleetAgent(service=SortService(workers, device, job=cfg.job, serve=serve_cfg),
+                       agent_id=f"{name}-{side}")
+            for side, workers in (("a", half), ("b", n_devs - half))
+        ]
+        ctl = FleetController(
+            [ag.addr for ag in agents], state_dir=os.path.join(td, name),
+            max_queue_depth=serve_cfg.max_queue_depth,
+            max_tenant_inflight=serve_cfg.max_tenant_inflight, routing=routing,
+            heartbeat_s=0.5, journal=arm_journal, health_telemetry=telemetry_on,
+        )
+        try:
+            t0 = time.perf_counter()
+            tickets = [ctl.submit(d, tenant=t)[1] for t, d in jobs]
+            outs = [ticket.result(timeout=900) for ticket in tickets]
+            dt = time.perf_counter() - t0
+            ok = all(np.array_equal(out, ref) for out, ref in zip(outs, refs))
+            events = arm_journal.events()
+            rerouted = sum(1 for e in events if e.type == "job_rerouted")
+            verdicts = sum(1 for e in events if e.type == "health_verdict")
+            hits = misses = 0
+            for ag in agents:
+                st = ag.service.variants.stats()
+                hits += st["hits"]
+                misses += st["misses"]
+            hit_rate = hits / (hits + misses) if (hits + misses) else 0.0
+            return dt, ok, hit_rate, rerouted, verdicts
+        finally:
+            ctl.shutdown(drain=True)
+            for ag in agents:
+                ag.close()
+
+    rand_journal, health_journal = EventLog(), EventLog()
+    with tempfile.TemporaryDirectory() as td:
+        # The random arm runs first and warms the process (the kernels' first
+        # calls, the allocator), so the arms after it compare warm.
+        dt_rand, ok_rand, hit_rand, _, _ = run_arm("random", rand_journal, td, "random")
+        # Heartbeats only against the live health plane: the same locality
+        # workload, the telemetry opt-in the only difference; min of reps a
+        # side.
+        dt_hb = dt_loc = None
+        ok_hb = ok_loc = True
+        for i in range(args.reps):
+            dt, ok, _, _, _ = run_arm("locality", EventLog(), td, f"hb-only{i}",
+                                      telemetry_on=False)
+            ok_hb = ok_hb and ok
+            dt_hb = dt if dt_hb is None else min(dt_hb, dt)
+            dt, ok, hit_loc, rerouted, _ = run_arm("locality", journal, td, f"locality{i}")
+            ok_loc = ok_loc and ok
+            dt_loc = dt if dt_loc is None else min(dt_loc, dt)
+        dt_health, ok_health, hit_health, _, verdicts = run_arm(
+            "health", health_journal, td, "health")
+    try:
+        if getattr(args, "journal", None):
+            journal.flush_jsonl(args.journal)
+    except OSError as e:
+        log.warning("fleet-mixed journal write failed: %s", e)
+    p95, fairness = _queue_fairness(journal.events(), tenants)
+    ok = ok_rand and ok_loc and ok_hb and ok_health and hit_loc > hit_rand and verdicts > 0
+    _emit({
+        "metric": "fleet_mixed_workload_2agents",
+        "value": round(len(jobs) / dt_loc, 2),
+        "unit": "jobs/sec",
+        "jobs": len(jobs),
+        "tenants": len(tenants),
+        "agents": 2,
+        "cache_hit_rate": round(hit_loc, 3),
+        "cache_hit_rate_random": round(hit_rand, 3),
+        "p95_queue_wait_ms": round(p95 * 1e3, 2),
+        "fairness_p95_ratio": round(fairness, 2),
+        "speedup_vs_random": round(dt_rand / dt_loc, 2),
+        "rerouted": rerouted,
+        "telemetry_overhead_frac": round(dt_loc / dt_hb - 1.0, 4),
+        "bit_identical": ok_rand and ok_loc,
+    })
+    _emit({
+        "metric": "fleet_mixed_health_routing_2agents",
+        "value": round(len(jobs) / dt_health, 2),
+        "unit": "jobs/sec",
+        "jobs": len(jobs),
+        "tenants": len(tenants),
+        "agents": 2,
+        "cache_hit_rate": round(hit_health, 3),
+        "health_verdicts": verdicts,
+        "speedup_vs_locality": round(dt_loc / dt_health, 2),
+        "bit_identical": ok_health,
+    })
+    return 0 if ok else 1
+
+
 def _nlabel(n: int) -> str:
     return f"{n >> 20}M" if n % (1 << 20) == 0 and n >= (1 << 20) else f"{n}_keys"
 
@@ -1259,6 +1404,7 @@ _RUNNERS = {
     "serve_mixed": _bench_serve_mixed,
     "analyze_smoke": _bench_analyze_smoke,
     "external_wave": _bench_external_wave,
+    "fleet_mixed": _bench_fleet_mixed,
     "coded_ab": _bench_coded_ab,
     "autotune_ab": _bench_autotune_ab,
     "hier_ab": _bench_hier_ab,

@@ -7,8 +7,7 @@ reference's ``KEY=value`` files (``server.conf`` / ``client.conf``) and
 under the reference's keys, so a conf file read by both packages gives the
 same values.  `JobConfig.from_dict` carries a ``dsort_tpu`` ``JobConfig``
 (``dataclasses.asdict``) across, ``autotune`` (the planner, `obs.plan`)
-included.  Not ported yet: the fleet plane (``FleetConfig``); a
-``FLEET_*`` key raises a "not yet ported" `ConfigError`.
+included; `FleetConfig` holds the fleet plane's ``FLEET_*`` keys.
 """
 
 from __future__ import annotations
@@ -327,18 +326,65 @@ _EXPLICIT_KEYS = {
     "EXTERNAL_WAVE_ELEMS": "wave_elems",
     "SERVE_PREWARM": "prewarm",
     "SERVE_SLICE_DEVICES": "slice_devices",
+    "FLEET_DISPATCH_TIMEOUT_S": "dispatch_timeout_s",
 }
 
 
 @dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """The fleet plane's knobs (``cli fleet`` / ``cli fleet-agent``), the
+    reference's.
+
+    ``agents`` is the controller's agent endpoint list (``--agents
+    host:port,...`` / conf ``FLEET_AGENTS``); ``state_dir`` is where the
+    controller persists its restart-safe queue and job table
+    (``FLEET_STATE_DIR``; without it a restart loses queued jobs);
+    ``routing`` is variant-cache locality, the random A/B baseline, or
+    ``health`` (locality for small jobs, big jobs placed by the live
+    straggler verdicts; ``FLEET_ROUTING``); ``heartbeat_s`` paces the
+    controller's agent pings (``FLEET_HEARTBEAT_S``); ``dispatch_timeout_s``
+    is the per-agent send deadline, how long one agent may sit on a submit
+    before its lane fails it over (``FLEET_DISPATCH_TIMEOUT_S``; None = the
+    controller's request timeout); ``telemetry`` opts the agents into the
+    health plane's bounded delta stream on the heartbeat cadence
+    (``FLEET_TELEMETRY``; on by default, off = heartbeats only).
+    """
+
+    agents: tuple[str, ...] = ()
+    state_dir: str | None = None
+    routing: str = "locality"
+    heartbeat_s: float = 2.0
+    dispatch_timeout_s: float | None = None
+    telemetry: bool = True
+
+    def __post_init__(self) -> None:
+        from dsort_tpu_torch.fleet.proto import ROUTING_POLICIES
+
+        if self.routing not in ROUTING_POLICIES:
+            raise ConfigError(
+                f"routing must be one of {ROUTING_POLICIES}, got {self.routing!r}"
+            )
+        if self.heartbeat_s <= 0:
+            raise ConfigError(f"heartbeat_s must be > 0, got {self.heartbeat_s}")
+        if self.dispatch_timeout_s is not None and self.dispatch_timeout_s <= 0:
+            raise ConfigError(
+                f"dispatch_timeout_s must be > 0, got {self.dispatch_timeout_s}"
+            )
+        for a in self.agents:
+            if ":" not in str(a):
+                raise ConfigError(f"agent address {a!r} must be HOST:PORT")
+
+
+@dataclasses.dataclass(frozen=True)
 class SortConfig:
-    """The whole tree: mesh + job + serve + external, and the reference's
-    control-plane endpoint and output path."""
+    """The whole tree: mesh + job + serve + external + fleet, and the
+    reference's control-plane endpoint and output path."""
 
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     job: JobConfig = dataclasses.field(default_factory=JobConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     external: ExternalConfig = dataclasses.field(default_factory=ExternalConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     server_ip: str = "127.0.0.1"
     server_port: int = 9008
     output_path: str = "output.txt"
@@ -355,17 +401,13 @@ class SortConfig:
         ``SERVE_SLICE_DEVICES``, ``SERVE_SMALL_JOB_MAX``, ``SERVE_WEIGHTS``
         (``tenant=weight,...``), ``SERVE_PREWARM`` (``1`` or ``all``),
         ``SERVE_SLO_SHED_MS``; ``EXTERNAL_RUN_ELEMS``,
-        ``EXTERNAL_WAVE_ELEMS``, ``EXTERNAL_MESH``.  ``PAYLOAD_BYTES`` is
-        read by the reference's config only; a ``FLEET_*`` key raises (the
-        fleet plane is not ported yet).  A knob key present in the mapping
-        joins ``JobConfig.explicit``.
+        ``EXTERNAL_WAVE_ELEMS``, ``EXTERNAL_MESH``; ``FLEET_AGENTS``
+        (``host:port,...``), ``FLEET_STATE_DIR``, ``FLEET_ROUTING``,
+        ``FLEET_HEARTBEAT_S``, ``FLEET_DISPATCH_TIMEOUT_S``,
+        ``FLEET_TELEMETRY``.  ``PAYLOAD_BYTES`` is read by the reference's
+        config only.  A knob key present in the mapping joins
+        ``JobConfig.explicit``.
         """
-        fleet = sorted(k for k in m if k.startswith("FLEET_"))
-        if fleet:
-            raise ConfigError(
-                f"conf keys {fleet}: the fleet plane is not yet ported to dsort_tpu_torch"
-            )
-
         def geti(key: str, default: int | None) -> int | None:
             return int(m[key]) if key in m else default
 
@@ -408,8 +450,17 @@ class SortConfig:
             wave_elems=geti("EXTERNAL_WAVE_ELEMS", ExternalConfig.wave_elems),
             mesh=geti("EXTERNAL_MESH", None),
         )
+        fleet = FleetConfig(
+            agents=tuple(a.strip() for a in m.get("FLEET_AGENTS", "").split(",") if a.strip()),
+            state_dir=m.get("FLEET_STATE_DIR") or None,
+            routing=m.get("FLEET_ROUTING", FleetConfig.routing),
+            heartbeat_s=float(m.get("FLEET_HEARTBEAT_S", FleetConfig.heartbeat_s)),
+            dispatch_timeout_s=(float(m["FLEET_DISPATCH_TIMEOUT_S"])
+                                if m.get("FLEET_DISPATCH_TIMEOUT_S") else None),
+            telemetry=m.get("FLEET_TELEMETRY", "1").strip().lower() not in ("0", "false", "no"),
+        )
         return cls(
-            mesh=mesh, job=job, serve=serve, external=external,
+            mesh=mesh, job=job, serve=serve, external=external, fleet=fleet,
             server_ip=m.get("SERVER_IP", "127.0.0.1"),
             server_port=int(m.get("SERVER_PORT", 9008)),
             output_path=m.get("OUTPUT_PATH", "output.txt"),

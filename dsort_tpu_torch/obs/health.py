@@ -18,9 +18,11 @@ Counterpart of ``dsort_tpu/obs/health.py``: the streaming twin of
   split, SLO-breach risk (rolling p95 queue wait against a target) and the
   ``degraded`` bit.
 
-The reference feeds the analyzer from its fleet controller, which is not
-ported yet; here the deltas come from the port's own jobs' `Metrics`
-(one collector per source).  `health_table` is the one copy of the
+The deltas come from the agents: each `fleet.FleetAgent` taps its
+service's `Metrics` with a collector and streams bounded ``telemetry``
+frames to the `fleet.FleetController`, which folds them into one analyzer
+(one source per agent), as the reference's fleet does; any `Metrics` can
+be tapped the same way.  `health_table` is the one copy of the
 health pane's columns, shared with ``cli top`` (`obs.top.render_health`).
 """
 

@@ -33,6 +33,10 @@ what this ledger records:
 - **`MemWatch`**: an event tap (``hbm_watermark`` at every phase
   boundary) reading `torch.cuda.memory_stats` on the card and, on the
   CPU, the bytes of the live tensors (`device_memory_snapshot`).
+
+torch is imported inside the functions that use it, as the reference
+imports JAX: `obs.analyze`, `obs.health` and the fleet controller load
+this module in a process that never imports torch.
 """
 
 from __future__ import annotations
@@ -44,8 +48,6 @@ import threading
 import time
 import warnings
 from collections import OrderedDict
-
-import torch
 
 from dsort_tpu_torch.utils.logging import get_logger
 
@@ -213,6 +215,8 @@ def ledger_from_journal(records: list[dict]) -> dict[str, dict]:
 
 
 def _tensors(obj) -> list:
+    import torch
+
     if isinstance(obj, torch.Tensor):
         return [obj]
     if isinstance(obj, (tuple, list)):
@@ -224,6 +228,8 @@ def _arg_spec(a):
     """One argument's specialization: shape, dtype, device for a tensor;
     the type alone for a scalar (a row's count varies per job and must not
     make each job a first call)."""
+    import torch
+
     if isinstance(a, torch.Tensor):
         return (tuple(a.shape), str(a.dtype), str(a.device))
     return ("scalar", type(a).__name__)
@@ -245,6 +251,8 @@ class LedgeredCall:
         self._seen: set = set()
 
     def __call__(self, *args):
+        import torch
+
         ts = _tensors(args)
         dev = ts[0].device if ts else torch.device("cpu")
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
@@ -339,6 +347,8 @@ def device_memory_snapshot(device=None) -> dict:
     it is not divided per slice.  On the CPU: the summed storage bytes of every live tensor (the
     reference's ``jax.live_arrays`` fallback), with no peak.
     """
+    import torch
+
     dev = torch.device(device) if device is not None else None
     if dev is None:
         dev = torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")

@@ -9,9 +9,9 @@ every counter.  The registries hold the reference's types of every ported
 plane, the serving layer, the planner, the compile ledger and the flight
 recorder included, with its descriptions word for word; the native
 coordinator's lines (``worker_join``, ``task_done``, ...) land through
-`EventLog.ingest` with the coordinator's own clock stamps.  Not ported
-yet: the fleet's events (``agent_*``, ``job_routed``, ``health_verdict``,
-...).
+`EventLog.ingest` with the coordinator's own clock stamps, and the
+fleet's (``agent_*``, ``job_routed``, ``controller_restore``,
+``health_verdict``, ...) from `fleet.controller` and `fleet.agent`.
 
 ``EventLog(rotate_bytes=...)`` (``--journal-rotate-mb``) bounds any one
 JSONL file; the journal's two consumers are `to_chrome_trace` (a Perfetto
@@ -164,6 +164,35 @@ EVENT_TYPES: dict[str, str] = {
     "hbm_watermark": "a --memwatch device-memory snapshot at a phase "
                      "boundary (phase, edge, bytes_in_use, "
                      "max_device_bytes, source)",
+    # The fleet plane (fleet/):
+    "agent_register": "a fleet execution agent (re)registered with the "
+                      "controller (agent, addr, capacity, big_jobs, "
+                      "draining, variants, reattach)",
+    "agent_heartbeat": "one controller->agent heartbeat round-trip (agent, "
+                       "queued, in_flight, draining, variants)",
+    "job_routed": "the fleet controller dispatched a job onto an agent "
+                  "(job_id, tenant, agent, reason — locality/size/spill/"
+                  "random/health, n_keys)",
+    "job_rerouted": "a routed/in-flight job re-entered the fleet queue "
+                    "after its agent drained, died, or forgot it (job_id, "
+                    "tenant, frm, reason, readmits)",
+    "job_dispatched": "an agent accepted a dispatched job — the submit "
+                      "round-trip the send deadline must cover (job_id, "
+                      "agent, accept_latency_s; the dispatch_timeout_s "
+                      "policy's measured input)",
+    "controller_restore": "a restarted fleet controller restored its "
+                          "persisted queue + in-flight state (controller, "
+                          "queued, inflight, agents)",
+    # The health plane (obs.health over the fleet protocol):
+    "health_verdict": "the controller's rolling why-slow verdict for one "
+                      "agent, refreshed per ingested telemetry delta "
+                      "(agent, score, straggler, dominant_phase, splits, "
+                      "slo_risk, degraded, seq — obs.health."
+                      "HEALTH_VERDICT_KEYS)",
+    "agent_degraded": "an agent's health verdict flipped degraded — the "
+                      "controller dumps a flight bundle and health routing "
+                      "penalizes it for big jobs (agent, score, "
+                      "dominant_phase)",
     "plan_decision": "the closed-loop planner chose a knob value from "
                      "measured inputs, journaled BEFORE dispatch (policy — "
                      "one of obs.plan.PLAN_POLICIES, chosen, inputs — the "
@@ -258,6 +287,20 @@ COUNTERS: dict[str, str] = {
                         "(obs.prof; each carries cost/HBM analysis)",
     "hbm_watermarks": "device-memory snapshots taken at phase boundaries "
                       "(--memwatch)",
+    # The fleet plane:
+    "fleet_jobs_routed": "jobs the fleet controller dispatched onto "
+                         "execution agents",
+    "fleet_jobs_rerouted": "routed jobs re-queued after an agent drained, "
+                           "died, or forgot them",
+    "fleet_heartbeats": "controller->agent heartbeat round-trips completed",
+    "controller_restores": "fleet controller restarts that restored "
+                           "persisted queue/in-flight state",
+    "fleet_telemetry_frames": "health-plane telemetry deltas the controller "
+                              "ingested from its agents",
+    "health_verdicts": "rolling per-agent health verdicts the controller "
+                       "journaled",
+    "agent_degradations": "agent health verdicts that flipped degraded "
+                          "(each dumps one flight bundle)",
     "plan_decisions": "knob values the closed-loop planner chose from "
                       "measured inputs (obs.plan; each journals a "
                       "plan_decision)",

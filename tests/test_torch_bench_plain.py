@@ -135,9 +135,10 @@ def test_plain_mode_journal_and_memwatch(tmp_path):
 # -- exclusivity ---------------------------------------------------------------
 
 #: The mode flags in the reference's precedence; each refuses every flag
-#: before it (``--fleet-mixed`` is not ported).
+#: before it.
 FLAGS = ["--suite", "--device-resident", "--exchange-ab", "--serve-mixed", "--analyze-smoke",
-         "--external-wave", "--coded-ab", "--autotune-ab", "--hier-ab", "--coded-v2-ab"]
+         "--external-wave", "--fleet-mixed", "--coded-ab", "--autotune-ab", "--hier-ab",
+         "--coded-v2-ab"]
 PAIRS = [(FLAGS[i], FLAGS[j]) for i in range(1, len(FLAGS)) for j in range(i)]
 
 
@@ -177,12 +178,12 @@ def test_bench_without_cuda_raises_through_resolve_device():
 #: Flags of the reference the port does not take yet, each with its reason.
 UNPORTED = {
     "run": {"--profile-dir"},   # waits on the port of utils/tracing.py
-    "bench": {"--fleet-mixed"},  # needs the fleet plane (fleet/)
 }
 #: Flags only the port takes, each with its reason.
 PORT_ONLY = {
     # The port's entry points run on the card unless asked for the CPU.
-    **{cmd: {"--device"} for cmd in ("run", "terasort", "external", "worker", "bench")},
+    **{cmd: {"--device"} for cmd in ("run", "terasort", "external", "worker", "bench",
+                                      "fleet-agent")},
     # serve and batch tap every job's memory too.
     "serve": {"--device", "--memwatch"},
     "batch": {"--device", "--memwatch"},
@@ -223,7 +224,7 @@ def reference_parser():
 
 
 PORTED_COMMANDS = ["run", "serve", "batch", "terasort", "external", "coordinator", "worker",
-                   "validate", "gen", "report", "top", "bench"]
+                   "validate", "gen", "report", "top", "bench", "fleet", "fleet-agent"]
 
 
 @pytest.mark.parametrize("cmd", PORTED_COMMANDS)
@@ -237,7 +238,7 @@ def test_bench_help_lists_the_reference_flags(reference_parser, capsys):
     with pytest.raises(SystemExit):
         cli.main(["bench", "--help"])
     text = capsys.readouterr().out
-    for flag in (_options(reference_parser["bench"]) - {"--fleet-mixed", "-h"}) | {"--device"}:
+    for flag in (_options(reference_parser["bench"]) - {"-h"}) | {"--device"}:
         assert flag in text, flag
 
 
@@ -328,6 +329,6 @@ def test_bench_args_namespace_defaults_match_reference(reference_parser):
     """Every bench flag parses to the reference's default."""
     ours = vars(cli._parser().parse_args(["bench"]))
     ref = vars(reference_parser["bench"].parse_args([]))
-    shared = set(ref) - {"fn", "fleet_mixed"}
+    shared = set(ref) - {"fn"}
     assert {k: ours[k] for k in shared} == {k: ref[k] for k in shared}
     assert dataclasses.is_dataclass(cli._load_config(argparse.Namespace(**ours)))

@@ -36,8 +36,6 @@ from dsort_tpu_torch.scheduler import FaultInjector, SpmdScheduler
 from dsort_tpu_torch.utils.events import EVENT_TYPES, EventLog
 from dsort_tpu_torch.utils.metrics import Metrics
 
-#: Contract names of the fleet plane, which the port does not run yet.
-FLEET_ONLY = {"controller_restore", "job_rerouted", "job_routed"}
 
 
 def _same(records, contracts=None) -> dict:
@@ -64,8 +62,8 @@ def test_registry_is_the_references_and_resolves():
         alphabet = contract_names(contract)
         assert alphabet == jc.contract_names(contract)
         covered |= alphabet
-        missing = (alphabet | set(contract.get("when", ()))) - set(EVENT_TYPES)
-        assert missing <= FLEET_ONLY
+        # Every name of every contract, the fleet's included, is registered.
+        assert not (alphabet | set(contract.get("when", ()))) - set(EVENT_TYPES)
     assert not covered & set(CONTRACT_EXEMPT)
     for name, contract in TRACE_CONTRACTS.items():
         assert compile_contract(contract).pattern == jc.compile_contract(contract).pattern

@@ -90,6 +90,13 @@ def test_entry_points_without_a_device_raise_instead_of_running_on_cpu(monkeypat
         VirtualMesh(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["run", os.devnull])
+    # The fleet's agent, in process and as ``cli fleet-agent``.
+    from dsort_tpu_torch.fleet import FleetAgent
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetAgent(num_workers=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["fleet-agent", "--workers", "4"])
     assert VirtualMesh(8, "cpu").device.type == "cpu"
 
 
@@ -120,6 +127,14 @@ def test_the_introspection_plane_is_scanned():
     assert {"dsort_tpu_torch/obs/merge.py", "dsort_tpu_torch/obs/analyze.py",
             "dsort_tpu_torch/obs/health.py", "dsort_tpu_torch/obs/top.py",
             "dsort_tpu_torch/analysis/spec/contracts.py"} <= names
+
+
+def test_the_fleet_plane_is_scanned():
+    """The scan covers the fleet plane: the protocol, the controller and
+    the agent."""
+    names = {str(p.relative_to(ROOT)) for p in _modules()}
+    assert {"dsort_tpu_torch/fleet/__init__.py", "dsort_tpu_torch/fleet/proto.py",
+            "dsort_tpu_torch/fleet/controller.py", "dsort_tpu_torch/fleet/agent.py"} <= names
 
 
 _BLOCKED_REPORT = r"""

@@ -191,11 +191,10 @@ def test_planner_replay_across_packages(writer, tmp_path):
         m, live = _metered(), Planner(job=JobConfig(autotune=True))
     live.attach(m)
     _signals(m)
-    if writer == "jax":
-        # The fleet's signals exist only in the reference's registry.
-        m.event("job_rerouted", job_id="j1", frm="a0", to="a1", reason="agent_lost")
-        m.event("health_verdict", agent="a0", score=2.5, degraded=True)
-        m.event("job_dispatched", job_id="j1", agent="a1", accept_latency_s=0.02)
+    # The fleet's signals, registered in both packages.
+    m.event("job_rerouted", job_id="j1", frm="a0", to="a1", reason="agent_lost")
+    m.event("health_verdict", agent="a0", score=2.5, degraded=True)
+    m.event("job_dispatched", job_id="j1", agent="a1", accept_latency_s=0.02)
     path = tmp_path / "j.jsonl"
     m.journal.write_jsonl(str(path))
     records = [json.loads(ln) for ln in open(path)]

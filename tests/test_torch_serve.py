@@ -348,8 +348,12 @@ def test_serve_config_validation_conf_file_and_fleet_refusal(tmp_path):
     got, want = SortConfig.from_conf_file(conf), JaxSortConfig.from_conf_file(conf)
     assert dataclasses.asdict(got.serve) == dataclasses.asdict(want.serve)
     assert got.serve.tenant_weights == {"acme": 2.0}
-    with pytest.raises(ConfigError, match="fleet plane is not yet ported"):
-        SortConfig.from_mapping({"FLEET_AGENTS": "a:1"})
+    # The FLEET_* keys parse as the reference's (the fleet plane is ported).
+    fleet = {"FLEET_AGENTS": "a:1", "FLEET_ROUTING": "random"}
+    assert dataclasses.asdict(SortConfig.from_mapping(fleet).fleet) == dataclasses.asdict(
+        JaxSortConfig.from_mapping(fleet).fleet)
+    with pytest.raises(ConfigError, match="routing"):
+        SortConfig.from_mapping({"FLEET_ROUTING": "mystery"})
     with pytest.raises(ConfigError, match="not found"):
         SortConfig.from_conf_file(tmp_path / "missing.conf")
     (tmp_path / "bad.conf").write_text("NOEQUALS\n")
