@@ -191,9 +191,9 @@ Phases (any failure raises, so the exit code is non-zero):
    native native plain), each pair bit-identical: ``merge_sorted_host`` of
    8 runs of 2^23 int32 against the numpy pairwise merge,
    ``read_ints_file`` / ``write_ints_file`` of phase 4's 10^6-line file and
-   of a 2^24-line file against the numpy grammar and the Python formatter,
-   ``fnv_multiset`` / ``check_order_be`` over the 2^23 records against
-   ``_fnv_multiset_py`` / ``_check_order_chunk``; ``ExternalSort`` of the
+   of a 2^22-line file against the numpy grammar and the Python formatter,
+   ``fnv_multiset`` over the first 2^21 records and ``check_order_be`` over
+   the 2^23 against ``_fnv_multiset_py`` / ``_check_order_chunk``; ``ExternalSort`` of the
    2^26 int32 in 8 runs and ``ExternalWaveTeraSort`` of the 2^23 records,
    each exact with ``native_merges`` counted; ``NativeCoordinator`` with 4
    ``runtime.worker`` processes sorting on the card (``--backend torch``,
@@ -215,10 +215,10 @@ Phases (any failure raises, so the exit code is non-zero):
    counts) with ``--journal`` in a temporary directory: ``--suite --reps
    5``; the plain mode at 2^24 (``--memwatch``); ``--device-resident`` at
    2^26; ``--exchange-ab`` at 2^24; ``--analyze-smoke`` at 2^20 (its 5%
-   gate binds from there; 2048 reps a side: the host's speed shifts
-   between regimes a few sorts long, and the minimum of 8 to 1024 swung
-   by up to ±11%); ``--coded-ab``, ``--coded-v2-ab``, ``--hier-ab``,
-   ``--autotune-ab`` (32 reps), ``--serve-mixed`` at 2^22;
+   gate binds from there; 256 reps a side: the host's speed shifts
+   between regimes a few sorts long, so its reading is printed, not
+   gated); ``--coded-ab``, ``--coded-v2-ab``, ``--hier-ab``,
+   ``--autotune-ab`` (16 reps), ``--serve-mixed`` at 2^22;
    ``--external-wave`` at 2^24.  Each mode's JSON lines are printed
    (``bench 15.x``); a non-zero exit, a gate field that is not true, or a
    kernel the mode must launch (K1, K2 and the tile merge everywhere; R1,
@@ -244,6 +244,20 @@ Phases (any failure raises, so the exit code is non-zero):
    2^19 --reps 2`` (exit 0, locality's hit rate above random's, health
    verdicts; ``telemetry_overhead_frac`` printed, not gated); every
    journal, merged on the peer clock blessings, against the contracts.
+17. profiling and lint (`profiling_and_lint`): in a fresh child process
+   (``--profile-child``, as a user's ``cli run --profile-dir`` runs),
+   ``cli run --profile-dir`` on the 10^6 lines of phase 4's ``main cli``
+   (the fused route) and a 2^26 int32 ``SampleSort`` under
+   `utils.tracing.profile_trace`, each after a warm-up and then in turns
+   with the unprofiled run (plain profiled profiled plain), each output
+   numpy's bits; each trace parses as a Chrome trace holding the
+   job's ``dsort:`` phase ranges (``partition``, ``local_sort`` /
+   ``spmd_sort``, ``assemble``), and the 2^26 sort's names each block
+   kernel; the traced kernel counts are printed beside the counted
+   launches, not gated (the profiler may drop a kernel); ``cli lint`` of a
+   copy of the port's tree in a process that cannot import torch, jax or
+   dsort_tpu, cold and warm (exit 0, no finding), then with a counter
+   drift seeded (exit 1, DS102).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -3427,10 +3441,10 @@ def native_runtime(card, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, launc
                                            "--port", str(cli_port)], 4)
         # 14.2's inputs, while the workers start (nothing here is timed).
         runs8 = [np.sort(c) for c in np.split(x32, 8)]
-        x24 = x32[: 1 << 24]
-        in24, dst = spill / "in24.txt", spill / "out.txt"
-        ingest.write_ints_file(in24, x24)
-        sorted24, sorted6 = np.sort(x24), np.sort(ingest.read_ints_file(src))
+        x22 = x32[: 1 << 22]
+        in22, dst = spill / "in22.txt", spill / "out.txt"
+        ingest.write_ints_file(in22, x22)
+        sorted22, sorted6 = np.sort(x22), np.sort(ingest.read_ints_file(src))
         rec_in, rec_ref = spill / "tera_in.bin", spill / "tera_ref.bin"
         ingest.write_terasort_file(rec_in, tk, tv)
         ingest.write_terasort_file(rec_ref, ref_k, ref_v)
@@ -3485,18 +3499,18 @@ def native_runtime(card, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, launc
               "pairwise merge", lambda: merge_pairwise(list(runs8)),
               lambda: merge_sorted_host(runs8), equal_to(ref32))
         del runs8
-        # The numpy and Python plain versions take seconds at 2^24 lines and
-        # 2^23 records: those pairs time the plain version once, between two
-        # native runs.
+        # The numpy and Python plain versions take seconds at 2^22 lines and
+        # 2^21 records (at 2^24 and 2^23 they took 30 s of the phase):
+        # those pairs time the plain version once, between two native runs.
         once = ("native", "plain", "native")
         for label, path, want, order in (("10^6-line cli run file", src, None, None),
-                                         ("2^24-line file", in24, x24, once)):
+                                         ("2^22-line file", in22, x22, once)):
             check = equal_to(want) if want is not None else one_answer()
             turns(f"read_ints_file of the {label} against the numpy grammar",
                   lambda: ingest.parse_ints_plain(path.read_bytes(), np.int32),
                   lambda: ingest.read_ints_file(path, np.int32), check, order or abba)
         for label, data, want, order in (("10^6 sorted keys", sorted6, want_bytes, None),
-                                         ("2^24 sorted keys", sorted24, None, once)):
+                                         ("2^22 sorted keys", sorted22, None, once)):
             written = one_answer()
 
             def check(which, _):
@@ -3506,11 +3520,12 @@ def native_runtime(card, x32, ref32, z, refz, tk, tv, ref_k, ref_v, reset, launc
             turns(f"write_ints_file of the {label} against the Python formatter",
                   lambda: dst.write_bytes(ingest.format_ints_plain(data)),
                   lambda: ingest.write_ints_file(dst, data), check, order or abba)
-        del x24, sorted24, sorted6
-        in24.unlink()
-        turns("fnv_multiset of the 2^23 records against _fnv_multiset_py",
-              lambda: validate._fnv_multiset_py(buf, nrec, 100),
-              lambda: native.fnv_multiset(buf, nrec, 100), one_answer(), once)
+        del x22, sorted22, sorted6
+        in22.unlink()
+        n21 = 1 << 21
+        turns("fnv_multiset of the first 2^21 records against _fnv_multiset_py",
+              lambda: validate._fnv_multiset_py(buf[: n21 * 100], n21, 100),
+              lambda: native.fnv_multiset(buf[: n21 * 100], n21, 100), one_answer(), once)
         if native.fnv_multiset(sbuf, nrec, 100) != native.fnv_multiset(buf, nrec, 100):
             raise AssertionError("14.2 the sorted records' multiset checksum differs")
         turns("check_order_be of the sorted 2^23 records against _check_order_chunk",
@@ -3708,11 +3723,11 @@ BENCH_MODES = (
     ("device-resident", ["--device-resident", "--n", "67108864", "--reps", "4"], BENCH_BLOCK),
     ("exchange-ab", ["--exchange-ab", "--n", "16777216", "--reps", "4"],
      BENCH_BLOCK + ("ring_exchange_kernel", "ring_exchange_kernel+kv", "gather_rows_kernel")),
-    ("analyze-smoke", ["--analyze-smoke", "--n", "1048576", "--reps", "2048"], BENCH_BLOCK),
+    ("analyze-smoke", ["--analyze-smoke", "--n", "1048576", "--reps", "256"], BENCH_BLOCK),
     ("coded-ab", ["--coded-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
     ("coded-v2-ab", ["--coded-v2-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
     ("hier-ab", ["--hier-ab", "--n", "4194304", "--reps", "3"], BENCH_BLOCK),
-    ("autotune-ab", ["--autotune-ab", "--n", "4194304", "--reps", "32"],
+    ("autotune-ab", ["--autotune-ab", "--n", "4194304", "--reps", "16"],
      BENCH_BLOCK + ("ring_exchange_kernel",)),
     ("serve-mixed", ["--serve-mixed", "--n", "4194304", "--reps", "2"], BENCH_BLOCK),
     ("external-wave", ["--external-wave", "--n", "16777216", "--reps", "1"], BENCH_BLOCK),
@@ -4160,6 +4175,230 @@ def fleet_plane(card, x32, ref32, reset, counts, launched, keys_path, work,
     log(f"fleet 16.5 trace contracts over every phase-16 journal (merged on the peer clock "
         f"blessings): no violation; scoped traces checked {checked}")
     log(f"phase 16 fleet: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+
+
+# Phase 17: the block kernels every integer sort of 2^16 keys a shard and
+# more launches under ``auto``, which the 2^26 sort's trace must name.
+PROFILE_KERNELS = ("bitonic_tile_kernel", "bitonic_global_stage_kernel",
+                   "bitonic_tile_merge_kernel")
+
+#: ``cli lint`` in a process that cannot import torch, jax or dsort_tpu:
+#: the run exits 3 if any of them was imported anyway.
+BLOCKED_LINT = r"""
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib", "dsort_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+from dsort_tpu_torch import cli
+rc = cli.main(sys.argv[1:])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib", "dsort_tpu"))
+sys.exit(3 if bad else rc)
+"""
+
+
+def chrome_trace(trace_dir: Path) -> tuple[set, dict]:
+    """The ``dsort:`` ranges of a `profile_trace` capture, and its CUDA
+    kernels' launches by name."""
+    from dsort_tpu_torch.utils.tracing import TRACE_NAME
+
+    with open(trace_dir / TRACE_NAME, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events
+              if e.get("ph") == "X" and str(e.get("name", "")).startswith("dsort:")}
+    kernels: dict[str, int] = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return ranges, kernels
+
+
+def kernel_launches(kernels: dict, names) -> dict:
+    """Launches in a trace of each kernel named, every instantiation."""
+    return {k: sum(n for name, n in kernels.items() if k + "<" in name) for k in names}
+
+
+def profile_runs(card, ss, x32, ref32, reset, counts, src, want_bytes, scratch: Path) -> None:
+    """17.1 and 17.2: ``cli run --profile-dir`` on the 10^6 lines and a
+    2^26 int32 sort under `profile_trace`, each in turns with its
+    unprofiled run.  Each warms up first (one plain run, one capture: the
+    first capture of a process pays the profiler's start-up)."""
+    from dsort_tpu_torch import cli
+    from dsort_tpu_torch.utils.metrics import Metrics
+    from dsort_tpu_torch.utils.tracing import profile_trace
+
+    order = ("plain", "profiled", "profiled", "plain")
+    dst = scratch / "output.txt"
+    walls: dict = {"plain": [], "profiled": []}
+    for turn, arm in enumerate(("warm-up", "warm-up profiled") + order):
+        trace_dir = scratch / f"cli{turn}"
+        argv = ["run", str(src), "-o", str(dst)]
+        if arm.endswith("profiled"):
+            argv += ["--profile-dir", str(trace_dir)]
+        reset()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"17.1 cli {' '.join(argv[3:])}: exit non-zero")
+        wall = (time.perf_counter() - t0) * 1e3
+        if dst.read_bytes() != want_bytes:
+            raise AssertionError(f"17.1 cli run ({arm}): output differs from sort -n")
+        got = {k: v for k, v in counts().items() if v}
+        if arm.startswith("warm-up"):
+            log(f"17.1 cli run 10^6 lines {arm}: {wall:.1f} ms [{card}]")
+            continue
+        walls[arm].append(wall)
+        if arm == "plain":
+            plain_counts = got
+            continue
+        ranges, kernels = chrome_trace(trace_dir)
+        want = {"dsort:partition", "dsort:local_sort", "dsort:assemble"}
+        if not want <= ranges:
+            raise AssertionError(f"17.1 cli run --profile-dir: trace ranges {ranges}, "
+                                 f"missing {want - ranges}")
+        log(f"17.1 cli run --profile-dir 10^6 lines (turn {turn - 1}): byte-identical, trace "
+            f"ranges {sorted(ranges)}, traced launches "
+            f"{kernel_launches(kernels, PROFILE_KERNELS)} beside counted {got} [{card}]")
+    log(f"17.1 cli run 10^6 lines walls in turns {'/'.join(order)}: "
+        f"{[round(w, 1) for w in walls['plain'][:1] + walls['profiled'] + walls['plain'][1:]]}"
+        f" ms; unprofiled launches {plain_counts} [{card}]")
+
+    walls = {"plain": [], "profiled": []}
+    for turn, arm in enumerate(("warm-up profiled",) + order):
+        trace_dir = scratch / f"sort{turn}"
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        with profile_trace(str(trace_dir) if arm.endswith("profiled") else None):
+            t1 = time.perf_counter()
+            out = ss.sort(x32, Metrics())
+            torch.cuda.synchronize()
+            sort_ms = (time.perf_counter() - t1) * 1e3
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        if not same_bits(out, ref32):
+            raise AssertionError(f"17.2 SampleSort 2^26 ({arm}): output differs from numpy")
+        got = {k: v for k, v in counts().items() if v}
+        if arm == "plain":
+            walls[arm].append(sort_ms)
+            plain_counts = got
+            continue
+        ranges, kernels = chrome_trace(trace_dir)
+        want = {"dsort:partition", "dsort:spmd_sort", "dsort:assemble"}
+        traced_n = kernel_launches(kernels, PROFILE_KERNELS)
+        if not want <= ranges or not all(traced_n.values()):
+            raise AssertionError(f"17.2 SampleSort 2^26 trace: ranges {sorted(ranges)} "
+                                 f"(need {sorted(want)}), block kernels {traced_n}")
+        label = arm if arm.startswith("warm-up") else f"turn {turn}"
+        if arm == "profiled":
+            walls[arm].append(sort_ms)
+        log(f"17.2 SampleSort int32 n=2^26 under profile_trace ({label}): equal to numpy, "
+            f"sort {sort_ms:.1f} ms, capture with export {capture_ms:.1f} ms, trace ranges "
+            f"{sorted(ranges)}, {sum(kernels.values())} kernel events, traced launches "
+            f"{traced_n} beside counted {got} [{card}]")
+    log(f"17.2 SampleSort int32 n=2^26 walls in turns {'/'.join(order)}: "
+        f"{[round(w, 1) for w in walls['plain'][:1] + walls['profiled'] + walls['plain'][1:]]}"
+        f" ms; unprofiled launches {plain_counts} [{card}]")
+
+
+def profile_child() -> int:
+    """``chip_smoke.py --profile-child SCRATCH SRC``: `profile_runs` in a
+    fresh process, as a user's ``cli run --profile-dir`` runs, on the
+    arrays the parent saved in SCRATCH.  (A capture late in a process that
+    has run for many minutes lost kernels on the card: PERF.md §7.)"""
+    from dsort_tpu_torch.ops import _build
+    from dsort_tpu_torch.ops import block_sort as tb
+    from dsort_tpu_torch.ops import pallas_sort as ps
+    from dsort_tpu_torch.ops import ring_kernel as rk
+    from dsort_tpu_torch.parallel.mesh import VirtualMesh
+    from dsort_tpu_torch.parallel.sample_sort import SampleSort
+
+    scratch, src = Path(sys.argv[2]), Path(sys.argv[3])
+    _build.library()  # built by the parent in phase 1
+
+    def reset():
+        tb.reset_launch_counts()
+        rk.reset_launch_counts()
+        ps.reset_launch_counts()
+
+    def counts():
+        return {**tb.launch_counts(), **rk.launch_counts(), **ps.launch_counts()}
+
+    profile_runs(card_line(), SampleSort(VirtualMesh(8)), np.load(scratch / "x32.npy"),
+                 np.load(scratch / "ref32.npy"), reset, counts, src,
+                 (scratch / "want.txt").read_bytes(), scratch)
+    return 0
+
+
+def lint_runs(card, scratch: Path) -> None:
+    """17.3: ``cli lint`` of a copy of the port's tree in a process that
+    cannot import torch, jax or dsort_tpu: cold, warm, and with a counter
+    drift seeded."""
+    import shutil
+
+    root = scratch / "lint"
+    shutil.copytree(ROOT / "dsort_tpu_torch", root / "dsort_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+
+    def lint(label):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", BLOCKED_LINT, "lint", "--root", str(root),
+             "--format", "json", "--stats"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        wall = time.perf_counter() - t0
+        stats = [ln for ln in proc.stderr.splitlines() if "checker(s)" in ln]
+        diags = json.loads(proc.stdout) if proc.stdout.startswith("[") else None
+        log(f"17.3 cli lint {label}: exit {proc.returncode} in {wall:.2f} s, "
+            f"{stats[-1] if stats else 'no stats'}, "
+            f"findings {None if diags is None else len(diags)} [{card}]")
+        if diags is None:
+            raise AssertionError(f"17.3 cli lint {label}: no JSON\n{proc.stderr[-3000:]}")
+        return proc.returncode, diags
+
+    for label in ("cold", "warm"):
+        rc, diags = lint(label)
+        if rc != 0 or diags:
+            raise AssertionError(f"17.3 cli lint {label}: exit {rc}, findings {diags[:3]}")
+    (root / "dsort_tpu_torch" / "_seeded.py").write_text(
+        "def f(metrics):\n    metrics.bump('never_registered_counter')\n")
+    rc, diags = lint("with a seeded counter drift")
+    codes = [d["code"] for d in diags]
+    if rc != 1 or codes != ["DS102"] or "never_registered_counter" not in diags[0]["message"]:
+        raise AssertionError(f"17.3 seeded counter drift: exit {rc}, findings {diags}")
+
+
+def profiling_and_lint(card, x32, ref32, src, want_bytes) -> None:
+    """Phase 17: `profile_runs` in a child process (`profile_child`), then
+    `lint_runs` on this host."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    scratch = Path(tempfile.mkdtemp(prefix="dsort_prof_"))
+    try:
+        np.save(scratch / "x32.npy", x32)
+        np.save(scratch / "ref32.npy", ref32)
+        (scratch / "want.txt").write_bytes(want_bytes)
+        torch.cuda.empty_cache()  # the child shares this card
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--profile-child", str(scratch),
+             str(src)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"17.1-17.2 profiling child: exit {proc.returncode}\n"
+                                 f"{proc.stderr[-3000:]}")
+        lint_runs(card, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 17 profiling and lint: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
 def main() -> int:
@@ -5137,6 +5376,9 @@ def main() -> int:
     # 16. the fleet plane -----------------------------------------------------------
     fleet_plane(card, x32, ref32, reset, counts, launched, keys_path, work)
 
+    # 17. run --profile-dir, profile_trace, cli lint ----------------------------------
+    profiling_and_lint(card, x32, ref32, src, want_bytes)
+
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -5148,5 +5390,6 @@ def main() -> int:
 if __name__ == "__main__":
     CHILDREN = {"--real-error-child": real_error_child,
                 "--serve-real-error-child": serve_real_error_child,
-                "--bench-child": bench_child}
+                "--bench-child": bench_child,
+                "--profile-child": profile_child}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

@@ -10,7 +10,8 @@ Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
 the fused small-job route, the task pool, local — and ``--device-resident``;
 ``dsort serve``; ``dsort batch``; ``dsort terasort`` and ``dsort external``;
 ``dsort validate`` and ``dsort gen``; ``dsort coordinator`` and ``dsort
-worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``):
+worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``;
+``dsort lint`` and ``dsort run --profile-dir``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig``, ``ServeConfig``, ``SortConfig`` and the
@@ -52,26 +53,35 @@ worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``):
                        ``FleetController`` (routing, restart-safe state) and
                        ``FleetAgent`` (a ``SortService`` behind a TCP port)
   utils/events.py      ``EventLog``: the JSONL event journal
+  utils/tracing.py     ``profile_trace`` / ``annotate``: torch.profiler hooks
+                       (``run --profile-dir``)
+  analysis/            ``cli lint``: the stdlib-only static analysis of this
+                       tree (registries, locks, layers, durability, the
+                       fleet protocol spec, the exchanges' closed forms)
   runtime/             the native C++ runtime (k-way merges, text IO, record
                        hashes, worker table, TCP coordinator; built with g++
                        at first use), ``NativeCoordinator`` and the worker
                        process (``SortWorker``, sorting on the card)
   cli.py               ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,
-                       external,coordinator,worker,fleet,fleet-agent,bench} ...``
+                       external,coordinator,worker,fleet,fleet-agent,bench,lint} ...``
                        (``run --mode spmd|taskpool|local``, ``run --device-resident``),
                        ``validate``, ``gen``, ``report``, ``top``
 """
-
-from dsort_tpu_torch.config import ConfigError, JobConfig
 
 __all__ = ["ConfigError", "JobConfig", "resolve_device"]
 
 
 def __getattr__(name):
     # torch loads with the first device use, not with the package: a
-    # ``--backend numpy`` worker process never needs it.
+    # ``--backend numpy`` worker process never needs it.  numpy loads with
+    # the config: importing a subpackage (the stdlib-only ``analysis``)
+    # executes this module first and must not pull it in.
     if name == "resolve_device":
         from dsort_tpu_torch.device import resolve_device
 
         return resolve_device
+    if name in ("ConfigError", "JobConfig"):
+        from dsort_tpu_torch import config
+
+        return getattr(config, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

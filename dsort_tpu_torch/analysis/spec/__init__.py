@@ -1,5 +1,6 @@
-"""The spec plane's trace contracts: the declared grammars every journal
-of a recovery path obeys, replayable against any journal."""
+"""The spec plane: the fleet protocol's state machines (`machines`) and
+the journal trace contracts (`contracts`), both pure literals the DS10xx /
+DS11xx checkers parse, and the contracts' replay engine."""
 
 from dsort_tpu_torch.analysis.spec.contracts import (  # noqa: F401
     CONTRACT_EXEMPT,
@@ -9,3 +10,4 @@ from dsort_tpu_torch.analysis.spec.contracts import (  # noqa: F401
     conformance_report,
     format_conformance,
 )
+from dsort_tpu_torch.analysis.spec.machines import PROTOCOL_SPEC, SPEC_INVARIANTS  # noqa: F401

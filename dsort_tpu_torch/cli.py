@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,fleet,fleet-agent,bench,validate,gen,report,top} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,fleet,fleet-agent,bench,validate,gen,report,top,lint} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -32,7 +32,10 @@ Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
   basename, `_job_id_for`): a checkpointed ``spmd`` job skips the fused
   route and goes through `SpmdScheduler`, whose re-run restores what is on
   disk; ``taskpool`` persists its shards; ``--mode local`` and
-  ``--device-resident`` warn and ignore the flags, as the reference does;
+  ``--device-resident`` warn and ignore the flags, as the reference does.
+  ``--profile-dir DIR`` captures the job under ``torch.profiler``
+  (`utils.tracing.profile_trace`) into ``DIR/trace.json``, a Chrome trace
+  holding each phase as a ``dsort:<phase>`` range and the CUDA kernels;
 - ``serve [-o OUT] [--mode M] [--max-in-flight N] [--metrics-port P]
   [--prewarm [auto|all]] [--slice-devices S] [--queue-limit Q]
   [--tenant-limit T] [--weights acme=2,...] [--slo-shed-ms MS]
@@ -145,7 +148,12 @@ host tools run no sort and touch no device, as ``dsort``'s do:
   either package (`_report`): the timeline, or the why-slow verdict, or the
   trace-contract check (exit 1 on a violation);
 - ``top [URL...] [--interval S] [--count N]``: the console view of
-  ``serve --metrics-port`` endpoints (`_top`); exit 1 when none answers.
+  ``serve --metrics-port`` endpoints (`_top`); exit 1 when none answers;
+- ``lint [PATHS] [--format text|json|sarif] [--stats] [--baseline F]
+  [--write-baseline] [--changed] [--no-cache] [--root R]``: the port's
+  static analysis (`dsort_tpu_torch.analysis`, `_lint`) of
+  ``dsort_tpu_torch/`` by default; exit 0 clean, 1 findings.  It parses
+  the tree and never imports torch, so it needs no card.
 """
 
 from __future__ import annotations
@@ -343,6 +351,9 @@ def _parser() -> argparse.ArgumentParser:
                      help="persist per-shard/range progress here; a re-run of the same "
                           "input resumes instead of re-sorting")
     run.add_argument("--job-id", help="checkpoint namespace (default: input basename)")
+    run.add_argument("--profile-dir",
+                     help="capture a torch.profiler trace of the job here (trace.json: "
+                          "host ranges dsort:<phase> and the CUDA kernels)")
     serve = sub.add_parser("serve", help="the job loop: file names on stdin, served by the "
                                          "multi-tenant core")
     serve.add_argument("-o", "--output", default=None,
@@ -565,6 +576,29 @@ def _parser() -> argparse.ArgumentParser:
 
     add_worker_args(sub.add_parser("worker", help="a worker process: joins a coordinator "
                                                   "and sorts its chunks on the card"))
+    lint = sub.add_parser("lint", help="project-native static analysis of the port's tree "
+                                       "(dsort_tpu_torch.analysis; never imports torch)")
+    lint.add_argument("paths", nargs="*",
+                      help="files/directories to check (default: dsort_tpu_torch/)")
+    lint.add_argument("--format", default="text", choices=["text", "json", "sarif"],
+                      help="output format (sarif: SARIF 2.1.0 for code-scanning upload)")
+    lint.add_argument("--stats", action="store_true",
+                      help="print a per-checker wall-time/findings table (file vs "
+                           "project phase) to stderr")
+    lint.add_argument("--baseline",
+                      help="baseline JSON path (default: the port's, "
+                           "dsort_tpu_torch/analysis/lint-baseline.json)")
+    lint.add_argument("--write-baseline", action="store_true",
+                      help="record the current findings as tolerated (the shipped "
+                           "tree keeps this file empty)")
+    lint.add_argument("--changed", action="store_true",
+                      help="lint only files under dsort_tpu_torch/ changed vs git HEAD "
+                           "(plus untracked)")
+    lint.add_argument("--no-cache", action="store_true",
+                      help="skip the content-hash result cache (.lint-cache.torch.json)")
+    lint.add_argument("--root",
+                      help="project root (default: nearest directory holding "
+                           "dsort_tpu_torch/)")
     top = sub.add_parser("top", help="console view of running metrics endpoint(s)")
     top.add_argument("url", nargs="*",
                      help="metrics endpoint URL(s) (default http://127.0.0.1:9100/metrics; "
@@ -1504,8 +1538,113 @@ def _batch(args, job: JobConfig) -> int:
     return _journaled(args, run, f"{len(args.inputs)} files (dp={args.dp}) -> {args.outdir}")
 
 
+def _project_root(start: str) -> str:
+    """Nearest ancestor holding the port's package (fallback: ``start``)."""
+    d = os.path.abspath(start)
+    while True:
+        if os.path.isfile(os.path.join(d, "dsort_tpu_torch", "__init__.py")):
+            return d
+        parent = os.path.dirname(d)
+        if parent == d:
+            return os.path.abspath(start)
+        d = parent
+
+
+def _git_changed_files(root: str) -> list[str]:
+    """Lintable files changed vs HEAD (worktree + index) plus untracked
+    ones, absolute paths.  Loud on any git failure: a broken ``--changed``
+    must never pass as "0 files changed"."""
+    import subprocess
+
+    from dsort_tpu_torch.analysis.engine import _LINTABLE
+
+    def git(*argv):
+        r = subprocess.run(["git", "-C", root, *argv], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise SystemExit(
+                f"lint --changed: git {' '.join(argv)} failed: "
+                f"{r.stderr.strip() or r.returncode}"
+            )
+        return r.stdout.splitlines()
+
+    # --relative anchors diff paths at `root` (not the git toplevel).
+    names = set(git("diff", "--name-only", "--relative", "HEAD"))
+    names.update(git("ls-files", "--others", "--exclude-standard"))
+    return [
+        os.path.join(root, name) for name in sorted(names)
+        if name.endswith(_LINTABLE) and os.path.exists(os.path.join(root, name))
+    ]
+
+
+def _lint(args) -> int:
+    """The port's static analysis (`dsort_tpu_torch.analysis`), the
+    reference's ``cmd_lint``: exit 0 clean (modulo baseline), 1 findings.
+    It parses the tree and never imports it: no torch, no device."""
+    from dsort_tpu_torch.analysis import (
+        CACHE_NAME,
+        LintStats,
+        format_json,
+        format_sarif,
+        format_text,
+        lint_paths,
+        load_config,
+        write_baseline,
+    )
+
+    root = args.root or _project_root(os.getcwd())
+    cfg = load_config(root)
+    if args.baseline:
+        cfg.baseline = args.baseline
+    cache_path = None if args.no_cache else os.path.join(root, CACHE_NAME)
+    target = os.path.join(root, "dsort_tpu_torch")
+    if args.changed:
+        if args.paths:
+            raise SystemExit("lint: --changed and explicit paths are exclusive")
+        if args.write_baseline:
+            # The baseline is a whole-tree record: regenerating it from a
+            # changed-files subset would drop every tolerated entry of the
+            # unchanged files.
+            raise SystemExit(
+                "lint: --changed and --write-baseline are exclusive "
+                "(the baseline must be regenerated from the full tree)"
+            )
+        # The port's tree only: a touched test fixture is bad by design, and
+        # the JAX package has its own linter.
+        paths = [p for p in _git_changed_files(root) if p.startswith(target + os.sep)]
+        if not paths:
+            sys.stdout.write("lint: no changed lintable files\n")
+            return 0
+    else:
+        # User-given paths resolve against the working directory; a missing
+        # one is loud — a typo'd invocation must never pass as "0 findings".
+        paths = [os.path.abspath(p) for p in args.paths] or [target]
+        missing = [p for p in paths if not os.path.exists(p)]
+        if missing:
+            raise SystemExit(f"lint: no such path(s): {missing}")
+    if args.write_baseline:
+        # Capture everything the tree shows now: linting through the old
+        # baseline would drop tolerated findings, so regenerating is
+        # idempotent.
+        path = cfg.abspath(cfg.baseline)
+        cfg.baseline = None
+        diags = lint_paths(paths, cfg, cache_path=cache_path)
+        write_baseline(path, diags)
+        log.info("baseline written to %s (%d entries)", path, len(diags))
+        return 0
+    stats = LintStats() if args.stats else None
+    diags = lint_paths(paths, cfg, cache_path=cache_path, stats=stats)
+    formatter = {"json": format_json, "sarif": format_sarif}.get(args.format, format_text)
+    sys.stdout.write(formatter(diags))
+    if stats is not None:
+        # stderr, so `--format sarif > out.sarif` stays one SARIF document.
+        sys.stderr.write(stats.format())
+    return 1 if any(d.severity == "error" for d in diags) else 0
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.cmd == "lint":
+        return _lint(args)
     if args.cmd == "gen":
         return _gen(args)
     if args.cmd == "validate":
@@ -1536,7 +1675,15 @@ def main(argv=None) -> int:
         if args.cmd == "fleet-agent":
             return _fleet_agent(args, cfg)
         if args.cmd == "run":
-            return _run(args, cfg.job)
+            from dsort_tpu_torch.utils.tracing import profile_trace
+
+            # The capture starts before the sorter exists, so the threads
+            # it runs the job on are captured too.
+            with profile_trace(args.profile_dir):
+                rc = _run(args, cfg.job)
+            if args.profile_dir:
+                log.info("profiler trace written to %s", args.profile_dir)
+            return rc
         if args.cmd == "serve":
             return _serve(args, cfg)
         args.dp = args.dp or cfg.mesh.dp

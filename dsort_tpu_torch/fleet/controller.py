@@ -249,7 +249,11 @@ class FleetController:
         self._affinity: dict[str, str] = {}  # rung prefix -> agent_id
         self._seq = 0
         self._shutdown = False
-        self._dead = False
+        self._dead = False  # threads stop: a kill, or a shutdown's last step
+        # `kill` alone: a killed controller writes and deletes nothing more.
+        # A clean shutdown also sets `_dead` to quiet its readers, but a
+        # result finishing beside it still flushes and drops its spool.
+        self._killed = False
         self._closed = False
         self._done_jobs = 0
         self._failed_jobs = 0
@@ -396,7 +400,7 @@ class FleetController:
             return True
         seq, state = pending
         with self._persist_lock:
-            if self._dead:
+            if self._killed:
                 return False
             if seq <= self._persist_written:
                 return True  # a newer snapshot already landed
@@ -1541,6 +1545,7 @@ class FleetController:
         would, it ends every agent stream at once (``shutdown``, not a bare
         ``close``, which leaves a reader thread holding the stream open),
         and no thread of it writes the state after this returns."""
+        self._killed = True
         self._dead = True
         with self._cv:
             self._cv.notify_all()

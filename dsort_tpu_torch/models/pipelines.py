@@ -63,6 +63,37 @@ def local_pipeline(
 #: The reference's threshold, kept so both CLIs route every job alike.
 FUSED_SMALL_JOB_MAX = 1 << 20
 
+#: SPMD contract (parsed, not imported — `dsort_tpu_torch.analysis.spmd`).
+#: The host layer is host-plane: it builds meshes and calls shard
+#: programs but never issues a collective itself (DS1202).  ``pad_rung`` is
+#: the fused route's size quantizer: the DS1301 covering proof
+#: (``pad_rung(n) >= n``) is what makes "pad to the rung" safe, and the
+#: rung-step bound keeps the pad waste inside one ladder step.
+SPMD_CONTRACT = {
+    "plane": "host",
+    "caps": {
+        "pad_rung": {
+            "args": ("n",),
+            "domain": {
+                "n": (
+                    "list(range(1, 1025))"
+                    " + [4096, 4097, (1 << 20) - 3, 1 << 20]"
+                ),
+            },
+            "require": (
+                ("DS1301", "out >= n"),
+                ("DS1303", "out >= 8"),
+                ("DS1303", "out % 8 == 0"),
+                (
+                    "DS1301",
+                    "out - n"
+                    " < max(8, 1 << max((n - 1).bit_length() - 3, 0))",
+                ),
+            ),
+        },
+    },
+}
+
 
 def pad_rung(n: int) -> int:
     """The padded row length of an ``n``-key fused job.

@@ -31,6 +31,25 @@ from collections import Counter, deque
 
 import numpy as np
 
+#: SPMD contract (parsed, not imported — `dsort_tpu_torch.analysis.spmd`).
+#: The planner is host-plane (DS1202: no collectives), and its wave clamp
+#: must stay a non-degenerate ordered 8-aligned window: the wave sizer
+#: clamps into ``[WAVE_MIN_ELEMS, WAVE_MAX_ELEMS]``, so an inverted or
+#: unaligned window would produce zero-size (or tile-misaligned) waves.
+SPMD_CONTRACT = {
+    "plane": "host",
+    "consts": {
+        "WAVE_MIN_ELEMS": (
+            ("DS1303", "value >= 8"),
+            ("DS1303", "value % 8 == 0"),
+        ),
+        "WAVE_MAX_ELEMS": (
+            ("DS1303", "value % 8 == 0"),
+            ("DS1303", "value >= WAVE_MIN_ELEMS"),
+        ),
+    },
+}
+
 #: The policy catalog — one entry per knob the planner may fill.
 PLAN_POLICIES = (
     "exchange", "wave_elems", "redundancy", "redundancy_mode", "prewarm",

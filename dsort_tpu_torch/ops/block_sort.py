@@ -273,8 +273,9 @@ _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:

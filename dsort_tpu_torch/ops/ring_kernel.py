@@ -49,6 +49,36 @@ from dsort_tpu_torch.ops.local_sort import sentinel_for
 #: exchange-kernel launch.
 DISPATCHES_PER_FUSED_EXCHANGE = 1
 
+#: SPMD contract (parsed, not imported — `dsort_tpu_torch.analysis.spmd`).
+#: ``layouts`` puts the exchange kernel's slot layout under the DS1204
+#: proof: `ring_exchange_plain` (the layout the CUDA kernel writes,
+#: chip_smoke.py holds the two equal bit for bit) is evaluated step by step
+#: over sample caps, and every step's writes must be disjoint from every
+#: other step's and lie inside their buffers; ``caps`` pins `_step_offsets`
+#: to the exact partial-sum layout the kv tag plane and the payload
+#: workspace index.
+SPMD_CONTRACT = {
+    "plane": "device",
+    "layouts": {
+        "ring_exchange_plain": {"axis": "p", "caps": "caps"},
+    },
+    "caps": {
+        "_step_offsets": {
+            "args": ("caps",),
+            "domain": {"caps": "CAPS_SAMPLES"},
+            "require": (
+                ("DS1302", "out[0] == 0"),
+                ("DS1302", "len(out) == len(caps) + 1"),
+                (
+                    "DS1302",
+                    "all(out[i + 1] == out[i] + caps[i]"
+                    " for i in range(len(caps)))",
+                ),
+            ),
+        },
+    },
+}
+
 _MAX_SHARDS = 128  # csrc/ring_exchange.cu kMaxShards
 _KEY_DTYPES = (torch.int32, torch.int64)
 
@@ -57,8 +87,9 @@ _LAUNCH_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:

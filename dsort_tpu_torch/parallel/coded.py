@@ -38,6 +38,12 @@ import time
 import numpy as np
 import torch
 
+#: SPMD contract (parsed, not imported — `dsort_tpu_torch.analysis.spmd`).
+#: This module is the coded exchange's HOST bookkeeping plane (claim
+#: journals, recovery solves); issuing a collective from here would be a
+#: layering break, and the DS1202 host-plane rule makes it a lint error.
+SPMD_CONTRACT = {"plane": "host"}
+
 __all__ = [
     "CodedBudgetExceeded",
     "CodedExchangeState",

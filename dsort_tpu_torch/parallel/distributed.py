@@ -70,6 +70,14 @@ DEFAULT_TIMEOUT_S = 300.0
 #: The crash drill's hook: the named rank exits before its range persists.
 DIE_BEFORE_RANGE_ENV = "DSORT_MH_DIE_BEFORE_RANGE"
 
+#: SPMD contract (parsed, not imported — `dsort_tpu_torch.analysis.spmd`).
+#: The process-group plane: every collective here blocks the whole gloo
+#: group, so none may sit under a branch on the process rank (DS1202) —
+#: a rank that skips it leaves the others waiting until the group's
+#: timeout.  Control decisions that differ per rank go through
+#: `_allgather_u64` / `_global_max` first, so every rank branches alike.
+SPMD_CONTRACT = {"plane": "device"}
+
 
 def _dist():
     import torch.distributed as dist

@@ -75,6 +75,178 @@ __all__ = [
     "step_maxes",
 ]
 
+#: The SPMD contract (pure literal, read by PARSING this module —
+#: `dsort_tpu_torch.analysis.spmd`, ``cli lint``).  Declares the
+#: hierarchical plane's ``mesh.ppermute`` tables with the destination form
+#: each must compute, the destination form of every shard-axis
+#: ``torch.roll`` (the ring's ``ppermute``: a roll by ``s`` sends row ``i``
+#: to ``(i + s) % P``), every capacity function with the properties it
+#: must satisfy, and the hier leg's canvas re-pack; the ``spmd`` / ``caps``
+#: checkers prove them over the grids of ``analysis/spmd/registry.py``.
+#: `ring_caps` / `host_matrix` / `hier_plan` are numpy-bound and outside the
+#: symbolic subset: their covering property follows from `_quantize_cap`,
+#: which they delegate every quantization to.
+SPMD_CONTRACT = {
+    "plane": "device",
+    "perms": {
+        "_hier_perm_intra": {
+            "args": ("num_workers", "dev_per_host", "k"),
+            "domain": {
+                "num_workers": "MESH",
+                "dev_per_host": (
+                    "[d for d in range(1, num_workers + 1)"
+                    " if num_workers % d == 0]"
+                ),
+                "k": "range(dev_per_host)",
+            },
+            "kind": "full",
+            "axis_size": "num_workers",
+            "dst": (
+                "(i // dev_per_host) * dev_per_host"
+                " + ((i % dev_per_host + k) % dev_per_host)"
+            ),
+        },
+        "_hier_perm_leg": {
+            "args": ("num_workers", "hosts", "shift"),
+            "domain": {
+                "num_workers": "MESH",
+                "hosts": (
+                    "[h for h in range(1, num_workers + 1)"
+                    " if num_workers % h == 0]"
+                ),
+                "shift": "range(hosts)",
+            },
+            "kind": "partial",
+            "axis_size": "num_workers",
+            "pairs": (
+                "[(g * (num_workers // hosts)"
+                " + ((g + shift) % hosts) % (num_workers // hosts),"
+                " ((g + shift) % hosts) * (num_workers // hosts)"
+                " + g % (num_workers // hosts))"
+                " for g in range(hosts)]"
+            ),
+        },
+    },
+    "rolls": {
+        # Ring step k: shard i's bucket for (i + k) % P lands there (the
+        # reference's `_ring_perm(P, k)`), inside each job of J*P rows.
+        "_roll_jobs": {
+            "dims": 1, "axis_size": "p",
+            "domain": {"p": "MESH", "k": "range(p)"},
+            "dst": "(i + k) % p",
+        },
+        "_ring_exchange_kv_shard": {
+            "dims": 0, "axis_size": "p",
+            "domain": {"p": "MESH", "k": "range(p)"},
+            "dst": "(i + k) % p",
+        },
+        # Replica j of step k: the bucket's destination's j-th successor.
+        "_coded_ring_exchange_shard": {
+            "dims": 0, "axis_size": "p",
+            "domain": {"p": "MESH", "k": "range(p)", "j": "range(1, p)"},
+            "dst": "(i + k + j) % p",
+        },
+        "_coded_ring_exchange_kv_shard": {
+            "dims": 0, "axis_size": "p",
+            "domain": {"p": "MESH", "k": "range(p)", "j": "range(1, p)"},
+            "dst": "(i + k + j) % p",
+        },
+        # Parity slot j (at most two, `parity_slots`): successor j + 1.
+        "_parity_ring_exchange_shard": {
+            "dims": 0, "axis_size": "p",
+            "domain": {"p": "MESH", "j": "range(2)"},
+            "dst": "(i + j + 1) % p",
+        },
+        "_parity_ring_exchange_kv_shard": {
+            "dims": 0, "axis_size": "p",
+            "domain": {"p": "MESH", "j": "range(2)"},
+            "dst": "(i + j + 1) % p",
+        },
+    },
+    "caps": {
+        "ring_step_quantum": {
+            "args": ("n_local", "num_workers"),
+            "domain": {"num_workers": "MESH", "n_local": "SIZES"},
+            "require": (
+                ("DS1303", "out >= 8"),
+                ("DS1303", "out % 8 == 0"),
+                (
+                    "DS1301",
+                    "out <= ((max(n_local // (8 * num_workers), 8) + 7)"
+                    " // 8) * 8",
+                ),
+            ),
+        },
+        "_quantize_cap": {
+            "args": ("max_len", "n_local", "num_workers"),
+            "domain": {
+                "num_workers": "MESH",
+                "n_local": "SIZES",
+                "max_len": (
+                    "[m for m in [0]"
+                    " + [x * max(1, n_local // 31) for x in range(32)]"
+                    " + [n_local] if m <= n_local]"
+                ),
+            },
+            "require": (
+                ("DS1301", "out >= max_len"),
+                ("DS1303", "out >= 8"),
+                ("DS1303", "out % 8 == 0"),
+                (
+                    "DS1303",
+                    "out % ring_step_quantum(n_local, num_workers) == 0"
+                    " or out == max(((n_local + 7) // 8) * 8, 8)",
+                ),
+            ),
+        },
+        "ladder_rungs": {
+            "args": ("hi", "lo"),
+            "domain": {"hi": "SIZES", "lo": "(8, 64)"},
+            "require": (
+                ("DS1303", "all(r >= 8 for r in out)"),
+                ("DS1303", "all(r % 8 == 0 for r in out)"),
+                (
+                    "DS1302",
+                    "all(out[i] < out[i + 1]"
+                    " for i in range(len(out) - 1))",
+                ),
+                (
+                    "DS1301",
+                    "hi < lo or (len(out) > 0 and out[-1] <= hi"
+                    " and out[-1]"
+                    " + max(8, 1 << max(out[-1].bit_length() - 3, 0))"
+                    " > hi)",
+                ),
+            ),
+        },
+        "parity_slots": {
+            "args": ("redundancy",),
+            "domain": {"redundancy": "range(1, 12)"},
+            "require": (
+                ("DS1303", "0 <= out <= 2"),
+                ("DS1301", "out >= min(redundancy - 1, 2)"),
+            ),
+        },
+        "resolve_redundancy": {
+            "args": ("value", "default", "num_workers"),
+            "domain": {
+                "num_workers": "MESH",
+                "default": "(1, 2)",
+                "value": "[None] + list(range(1, 9))",
+            },
+            "require": (
+                ("DS1303", "1 <= out"),
+                ("DS1303", "out <= max(num_workers, 1)"),
+            ),
+        },
+    },
+    "stores": {
+        "_hier_exchange_shard": (
+            {"canvas": "rcv", "repack": "_pad_run", "width": "agg_total"},
+        ),
+    },
+}
+
 
 def resolve_exchange(value: str | None, default: str, num_workers: int) -> str:
     """Per-call override > config default; a 1-worker mesh always takes the

@@ -255,11 +255,12 @@ class SortService:
         card (None on the CPU)."""
         devs = self._devices
         groups = [devs[i: i + s] for i in range(0, len(devs) - s + 1, s)]
-        self._slices = {i: g for i, g in enumerate(groups or [devs])}
         cuda = self.device.type == "cuda"
-        self._streams = {
-            i: torch.cuda.Stream(self.device) if cuda else None for i in self._slices
-        }
+        with self._cv:
+            self._slices = {i: g for i, g in enumerate(groups or [devs])}
+            self._streams = {
+                i: torch.cuda.Stream(self.device) if cuda else None for i in self._slices
+            }
 
     # -- lifecycle ----------------------------------------------------------
 

@@ -100,7 +100,10 @@ class PhaseTimer:
     """Context-manager timer feeding a `Metrics` object.
 
     A phase's wall time is host time: a phase that ends in a device sync
-    (the sample sort's count fetch) covers its device work too.
+    (the sample sort's count fetch) covers its device work too.  Each
+    phase is also a ``dsort:<phase>`` range (`utils.tracing.annotate`), so
+    under ``cli run --profile-dir`` the phases line up against the kernels
+    in the trace.
     """
 
     def __init__(self, metrics: Metrics):
@@ -108,10 +111,13 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        from dsort_tpu_torch.utils.tracing import annotate
+
         self.metrics.event("phase_start", phase=name)
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(f"dsort:{name}"):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.metrics.add(name, dt)

@@ -176,9 +176,7 @@ def test_bench_without_cuda_raises_through_resolve_device():
 # -- the parsers -----------------------------------------------------------------
 
 #: Flags of the reference the port does not take yet, each with its reason.
-UNPORTED = {
-    "run": {"--profile-dir"},   # waits on the port of utils/tracing.py
-}
+UNPORTED: dict = {}
 #: Flags only the port takes, each with its reason.
 PORT_ONLY = {
     # The port's entry points run on the card unless asked for the CPU.
@@ -224,7 +222,7 @@ def reference_parser():
 
 
 PORTED_COMMANDS = ["run", "serve", "batch", "terasort", "external", "coordinator", "worker",
-                   "validate", "gen", "report", "top", "bench", "fleet", "fleet-agent"]
+                   "validate", "gen", "report", "top", "bench", "fleet", "fleet-agent", "lint"]
 
 
 @pytest.mark.parametrize("cmd", PORTED_COMMANDS)

@@ -617,3 +617,23 @@ def test_cli_fleet_agent_process_serves_the_reference_controller(tmp_path):
     assert "clock_sync" in types and types.count("job_done") >= 2
     assert {r.get("tenant") for r in records if r["type"] == "job_admitted"} == {"acme"}
     assert "fullmesh_dispatches" in json.dumps(records)
+
+
+def test_a_flush_during_a_clean_shutdown_stays_durable(tmp_path):
+    """A result that finishes while `shutdown` quiets the readers (which
+    sets the threads' stop flag) still flushes, drops its spool and acks;
+    only `kill` makes the controller write nothing more.  Under load the
+    restart drill above caught a spool left behind by exactly that race."""
+    from dsort_tpu_torch.fleet.controller import FleetController
+
+    ctl = FleetController(["127.0.0.1:1"], state_dir=str(tmp_path), heartbeat_s=60,
+                          start=False)
+    with ctl._cv:
+        ctl._persist_locked()
+    ctl._dead = True  # shutdown's last step
+    assert ctl._flush_persist()
+    assert os.path.exists(tmp_path / "controller_state.json")
+    with ctl._cv:
+        ctl._persist_locked()
+    ctl.kill()
+    assert not ctl._flush_persist()

@@ -111,6 +111,16 @@ def test_kernel_wrappers_refuse_other_devices():
     assert (tb.block_sort(y).numpy() == np.arange(1024)).all()
 
 
+def test_the_analysis_subtree_is_scanned():
+    """The scans above cover the lint engine, its checkers and registries,
+    which must import neither jax nor dsort_tpu (nor torch: the layer
+    contract `analysis.*` and test_torch_lint.py's blocked run hold that)."""
+    names = {str(p.relative_to(ROOT)) for p in _modules()}
+    for rel in ("analysis/core.py", "analysis/engine.py", "analysis/checkers/spmd.py",
+                "analysis/spmd/registry.py", "analysis/spec/machines.py", "utils/tracing.py"):
+        assert f"dsort_tpu_torch/{rel}" in names, rel
+
+
 def test_the_batch_and_multi_process_planes_are_scanned():
     """The scan above covers the multi-process plane and the rank program
     the tests and chip_smoke.py spawn (`tools/mh_proc.py`)."""
