@@ -256,8 +256,16 @@ Phases (any failure raises, so the exit code is non-zero):
    kernel; the traced kernel counts are printed beside the counted
    launches, not gated (the profiler may drop a kernel); ``cli lint`` of a
    copy of the port's tree in a process that cannot import torch, jax or
-   dsort_tpu, cold and warm (exit 0, no finding), then with a counter
-   drift seeded (exit 1, DS102).
+   dsort_tpu, cold and warm (exit 0, no finding, every lintable file of
+   the copy read, the spec model among them), then with a counter drift
+   seeded (exit 1, DS102).
+18. the fleet protocol's model checker (`spec_plane`), on the host, each
+   ``cli spec`` in a process that cannot import torch, jax or dsort_tpu:
+   ``check`` at the smoke bound (exit 0; 12,000 states, 25,030
+   transitions, depth 8, as the JAX package's checker finds), each
+   ``--seam`` at 20,000 states with ``--dump-fixture`` (exit 1; its
+   invariant and the committed fixture's minimized schedule), and
+   ``replay`` of both committed fixtures and both dumped ones (exit 0).
 
 Prints the card's name and power limit, one JSON line with the kernels'
 numbers, and last ``{"ok": true, "device": {...}}``.  Needs one GPU; exits
@@ -4182,9 +4190,10 @@ def fleet_plane(card, x32, ref32, reset, counts, launched, keys_path, work,
 PROFILE_KERNELS = ("bitonic_tile_kernel", "bitonic_global_stage_kernel",
                    "bitonic_tile_merge_kernel")
 
-#: ``cli lint`` in a process that cannot import torch, jax or dsort_tpu:
-#: the run exits 3 if any of them was imported anyway.
-BLOCKED_LINT = r"""
+#: ``cli ARG...`` (``lint`` in 17.3, ``spec`` in phase 18) in a process
+#: that cannot import torch, jax or dsort_tpu: the run exits 3 if any of
+#: them was imported anyway.
+BLOCKED_CLI = r"""
 import sys
 
 class _Block:
@@ -4336,17 +4345,24 @@ def profile_child() -> int:
 def lint_runs(card, scratch: Path) -> None:
     """17.3: ``cli lint`` of a copy of the port's tree in a process that
     cannot import torch, jax or dsort_tpu: cold, warm, and with a counter
-    drift seeded."""
+    drift seeded.  The cold run reads every lintable file of the copy,
+    the spec model among them."""
+    import re
     import shutil
+
+    from dsort_tpu_torch.analysis.engine import discover
 
     root = scratch / "lint"
     shutil.copytree(ROOT / "dsort_tpu_torch", root / "dsort_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    tree = discover([str(root / "dsort_tpu_torch")])
+    if str(root / "dsort_tpu_torch" / "analysis" / "spec" / "model.py") not in tree:
+        raise AssertionError("17.3: the copy holds no analysis/spec/model.py")
 
     def lint(label):
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-c", BLOCKED_LINT, "lint", "--root", str(root),
+            [sys.executable, "-c", BLOCKED_CLI, "lint", "--root", str(root),
              "--format", "json", "--stats"],
             cwd=ROOT, capture_output=True, text=True, timeout=300,
         )
@@ -4358,15 +4374,18 @@ def lint_runs(card, scratch: Path) -> None:
             f"findings {None if diags is None else len(diags)} [{card}]")
         if diags is None:
             raise AssertionError(f"17.3 cli lint {label}: no JSON\n{proc.stderr[-3000:]}")
-        return proc.returncode, diags
+        return proc.returncode, diags, stats
 
     for label in ("cold", "warm"):
-        rc, diags = lint(label)
+        rc, diags, stats = lint(label)
         if rc != 0 or diags:
             raise AssertionError(f"17.3 cli lint {label}: exit {rc}, findings {diags[:3]}")
+        files = re.search(r"(\d+) file\(s\)", stats[-1] if stats else "")
+        if files is None or int(files.group(1)) != len(tree):
+            raise AssertionError(f"17.3 cli lint {label}: {stats}, want {len(tree)} file(s)")
     (root / "dsort_tpu_torch" / "_seeded.py").write_text(
         "def f(metrics):\n    metrics.bump('never_registered_counter')\n")
-    rc, diags = lint("with a seeded counter drift")
+    rc, diags, _ = lint("with a seeded counter drift")
     codes = [d["code"] for d in diags]
     if rc != 1 or codes != ["DS102"] or "never_registered_counter" not in diags[0]["message"]:
         raise AssertionError(f"17.3 seeded counter drift: exit {rc}, findings {diags}")
@@ -4399,6 +4418,79 @@ def profiling_and_lint(card, x32, ref32, src, want_bytes) -> None:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"phase 17 profiling and lint: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+
+
+# Phase 18: what the fleet protocol's model checker must find on any
+# machine (the JAX package's checker finds the same): the smoke bound's
+# states, transitions and depth, and each seam's invariant.
+SPEC_SMOKE = (12_000, 25_030, 8)
+SPEC_SEAMS = {"ack_before_persist": "durable_before_ack",
+              "nonatomic_reserve": "no_double_run"}
+
+
+def spec_plane(card) -> None:
+    """Phase 18: ``cli spec`` on this host in processes that cannot import
+    torch, jax or dsort_tpu (`BLOCKED_CLI`): ``check`` at the smoke bound
+    (exit 0, `SPEC_SMOKE`); each ``--seam`` at 20,000 states with
+    ``--dump-fixture`` (exit 1, the seam's invariant, the committed
+    fixture's minimized schedule); ``replay`` of both committed fixtures
+    and of each dumped one (exit 0, the recorded invariant)."""
+    import re
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    scratch = Path(tempfile.mkdtemp(prefix="dsort_spec_"))
+
+    def spec(*argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", BLOCKED_CLI, "spec", *argv], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        return proc.returncode, proc.stdout, time.perf_counter() - t0, proc.stderr
+
+    def head(out):
+        m = re.match(r"spec check: ([\d,]+) distinct states, ([\d,]+) transitions, depth "
+                     r"(\d+), ([\d.]+)s", out)
+        if m is None:
+            raise AssertionError(f"18 spec check: no result line in {out[:500]!r}")
+        return (int(m.group(1).replace(",", "")), int(m.group(2).replace(",", "")),
+                int(m.group(3)), float(m.group(4)))
+
+    try:
+        rc, out, wall, err = spec("check", "--max-states", "12000")
+        states, transitions, depth, elapsed = head(out)
+        log(f"18.1 cli spec check (torch, jax, dsort_tpu blocked): exit {rc}, {states} states, "
+            f"{transitions} transitions, depth {depth}, checker {elapsed:.2f} s, process "
+            f"{wall:.2f} s [{card}]")
+        if rc != 0 or (states, transitions, depth) != SPEC_SMOKE or "(bound reached)" not in out:
+            raise AssertionError(f"18.1 spec check: exit {rc}, {(states, transitions, depth)} "
+                                 f"want {SPEC_SMOKE}\n{out[-2000:]}{err[-2000:]}")
+        fixtures = []
+        for seam, invariant in SPEC_SEAMS.items():
+            dumped = scratch / f"{seam}.json"
+            rc, out, wall, err = spec("check", "--seam", seam, "--max-states", "20000",
+                                      "--dump-fixture", str(dumped))
+            states, _, _, elapsed = head(out)
+            got = json.loads(dumped.read_text()) if dumped.exists() else {}
+            committed = json.loads((ROOT / "tests" / "data" / "spec" / f"{seam}.json").read_text())
+            log(f"18.2 cli spec check --seam {seam}: exit {rc} at {states} states, "
+                f"{got.get('invariant')}, minimized schedule of {len(got.get('schedule', []))} "
+                f"actions, checker {elapsed:.2f} s, process {wall:.2f} s [{card}]")
+            if (rc != 1 or got.get("invariant") != invariant
+                    or got.get("schedule") != committed["schedule"]):
+                raise AssertionError(f"18.2 spec --seam {seam}: exit {rc}, fixture {got}\n"
+                                     f"{out[-2000:]}{err[-2000:]}")
+            fixtures += [(ROOT / "tests" / "data" / "spec" / f"{seam}.json", invariant),
+                         (dumped, invariant)]
+        for path, invariant in fixtures:
+            rc, out, wall, err = spec("replay", "--fixture", str(path))
+            log(f"18.3 cli spec replay {path.name} ({'committed' if ROOT in path.parents else 'dumped'}"
+                f"): exit {rc}, {out.strip()[len(str(path)) + 2:]}, process {wall:.2f} s [{card}]")
+            if rc != 0 or f"reproduces {invariant} after" not in out:
+                raise AssertionError(f"18.3 spec replay {path}: exit {rc}\n{out}{err[-2000:]}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"phase 18 spec: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
 
 
 def main() -> int:
@@ -5378,6 +5470,9 @@ def main() -> int:
 
     # 17. run --profile-dir, profile_trace, cli lint ----------------------------------
     profiling_and_lint(card, x32, ref32, src, want_bytes)
+
+    # 18. the fleet protocol's model checker ------------------------------------------
+    spec_plane(card)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,12 +6,12 @@ tests hold every ported function against the JAX one on the same numpy
 input.  It imports ``torch`` and ``numpy`` only — nothing of JAX and
 nothing of ``dsort_tpu``.
 
-Ported so far (``dsort run`` in its three modes — the SPMD scheduler with
+Ported (``dsort run`` in its three modes — the SPMD scheduler with
 the fused small-job route, the task pool, local — and ``--device-resident``;
 ``dsort serve``; ``dsort batch``; ``dsort terasort`` and ``dsort external``;
 ``dsort validate`` and ``dsort gen``; ``dsort coordinator`` and ``dsort
 worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``;
-``dsort lint`` and ``dsort run --profile-dir``):
+``dsort lint`` and ``dsort run --profile-dir``; ``dsort spec``):
 
   device.py            device resolution (``cuda`` unless ``cpu`` is asked for)
   config.py            ``JobConfig``, ``ServeConfig``, ``SortConfig`` and the
@@ -57,13 +57,16 @@ worker``; ``dsort fleet`` and ``dsort fleet-agent``; ``dsort bench``;
                        (``run --profile-dir``)
   analysis/            ``cli lint``: the stdlib-only static analysis of this
                        tree (registries, locks, layers, durability, the
-                       fleet protocol spec, the exchanges' closed forms)
+                       fleet protocol spec, the exchanges' closed forms);
+                       ``cli spec``: the fleet protocol's model checker
+                       (``analysis/spec/model.py``)
   runtime/             the native C++ runtime (k-way merges, text IO, record
                        hashes, worker table, TCP coordinator; built with g++
                        at first use), ``NativeCoordinator`` and the worker
                        process (``SortWorker``, sorting on the card)
   cli.py               ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,
-                       external,coordinator,worker,fleet,fleet-agent,bench,lint} ...``
+                       external,coordinator,worker,fleet,fleet-agent,bench,lint,
+                       spec} ...``
                        (``run --mode spmd|taskpool|local``, ``run --device-resident``),
                        ``validate``, ``gen``, ``report``, ``top``
 """

@@ -1,4 +1,4 @@
-"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,fleet,fleet-agent,bench,validate,gen,report,top,lint} ...``.
+"""Command line: ``python -m dsort_tpu_torch.cli {run,serve,batch,terasort,external,coordinator,worker,fleet,fleet-agent,bench,validate,gen,report,top,lint,spec} ...``.
 
 Counterparts of ``dsort run`` and of the in-core ``dsort terasort``, over
 ``--workers`` virtual workers on the GPU unless ``--device cpu``:
@@ -153,7 +153,16 @@ host tools run no sort and touch no device, as ``dsort``'s do:
   [--write-baseline] [--changed] [--no-cache] [--root R]``: the port's
   static analysis (`dsort_tpu_torch.analysis`, `_lint`) of
   ``dsort_tpu_torch/`` by default; exit 0 clean, 1 findings.  It parses
-  the tree and never imports torch, so it needs no card.
+  the tree and never imports torch, so it needs no card;
+- ``spec check [--agents A] [--jobs J] [--duplications D] [--deaths D]
+  [--crashes C] [--max-states N] [--max-depth D] [--seam S]
+  [--dump-fixture F]`` / ``spec replay --fixture F``: the fleet protocol's
+  model checker (`analysis.spec.model`, `_spec`) over the port's
+  `ControlPolicy`; ``check`` exits 0 when no invariant is violated in the
+  explored space and 1 on a violation (printed with its minimized
+  schedule, written as a fixture with ``--dump-fixture``), ``replay`` exits
+  0 when the fixture still reproduces its violation.  It imports numpy,
+  never torch.
 """
 
 from __future__ import annotations
@@ -599,6 +608,32 @@ def _parser() -> argparse.ArgumentParser:
     lint.add_argument("--root",
                       help="project root (default: nearest directory holding "
                            "dsort_tpu_torch/)")
+    spec = sub.add_parser("spec", help="the fleet protocol's model checker over the port's "
+                                       "ControlPolicy, or replay of a violation fixture")
+    spec.add_argument("action", choices=["check", "replay"],
+                      help="check: explore bounded interleavings against the invariant "
+                           "catalog; replay: re-execute a dumped violation fixture "
+                           "deterministically")
+    spec.add_argument("--fixture", help="fixture JSON for `replay`")
+    spec.add_argument("--agents", type=int, default=2, help="modeled fleet size (default 2)")
+    spec.add_argument("--jobs", type=int, default=3,
+                      help="jobs submitted in the model (default 3)")
+    spec.add_argument("--duplications", type=int, default=1,
+                      help="frame retransmission budget (default 1)")
+    spec.add_argument("--deaths", type=int, default=1, help="link-death budget (default 1)")
+    spec.add_argument("--crashes", type=int, default=1,
+                      help="controller crash+restore budget (default 1)")
+    spec.add_argument("--max-states", type=int, default=12_000,
+                      help="distinct-state exploration bound (default 12000, the smoke bound)")
+    spec.add_argument("--max-depth", type=int, default=40,
+                      help="schedule depth bound (default 40)")
+    spec.add_argument("--seam", action="append",
+                      choices=["ack_before_persist", "nonatomic_reserve"],
+                      help="re-introduce a known-bad mutation (test seam); repeatable: the "
+                           "checker must find a violation")
+    spec.add_argument("--dump-fixture",
+                      help="write the minimized violating schedule as a replayable JSON "
+                           "fixture here")
     top = sub.add_parser("top", help="console view of running metrics endpoint(s)")
     top.add_argument("url", nargs="*",
                      help="metrics endpoint URL(s) (default http://127.0.0.1:9100/metrics; "
@@ -1641,10 +1676,51 @@ def _lint(args) -> int:
     return 1 if any(d.severity == "error" for d in diags) else 0
 
 
+def _spec(args) -> int:
+    """The fleet protocol's model checker (`analysis.spec.model`), the
+    reference's ``cmd_spec``: ``check`` exits 0 when the explored space
+    violates no invariant, 1 on a violation; ``replay`` exits 0 when the
+    fixture still reproduces its violation, 1 when it no longer does.  The
+    model is control-plane state only: no torch, no device."""
+    from dsort_tpu_torch.analysis.spec.model import (
+        ModelConfig,
+        check_model,
+        dump_fixture,
+        format_result,
+        load_fixture,
+        replay_schedule,
+    )
+
+    seams = tuple(args.seam or ())
+    if args.action == "replay":
+        if not args.fixture:
+            raise SystemExit("spec replay: --fixture is required")
+        schedule, cfg, fseams = load_fixture(args.fixture)
+        violation = replay_schedule(schedule, cfg, fseams)
+        if violation is None:
+            print(f"{args.fixture}: schedule no longer violates anything")
+            return 1
+        print(f"{args.fixture}: reproduces {violation.invariant} after "
+              f"{len(violation.schedule)} action(s): {violation.detail}")
+        return 0
+    cfg = ModelConfig(n_agents=args.agents, n_jobs=args.jobs,
+                      max_duplications=args.duplications, max_deaths=args.deaths,
+                      max_crashes=args.crashes)
+    result = check_model(cfg, seams=seams, max_states=args.max_states,
+                         max_depth=args.max_depth)
+    print(format_result(result, seams), end="")
+    if result.violation is not None and args.dump_fixture:
+        dump_fixture(args.dump_fixture, result.violation, cfg, seams)
+        log.info("violation fixture written to %s", args.dump_fixture)
+    return 0 if result.ok else 1
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.cmd == "lint":
         return _lint(args)
+    if args.cmd == "spec":
+        return _spec(args)
     if args.cmd == "gen":
         return _gen(args)
     if args.cmd == "validate":
@@ -1677,8 +1753,8 @@ def main(argv=None) -> int:
         if args.cmd == "run":
             from dsort_tpu_torch.utils.tracing import profile_trace
 
-            # The capture starts before the sorter exists, so the threads
-            # it runs the job on are captured too.
+            # The capture records every thread of the process, the lane
+            # threads the job runs on among them.
             with profile_trace(args.profile_dir):
                 rc = _run(args, cfg.job)
             if args.profile_dir:

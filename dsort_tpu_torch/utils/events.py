@@ -310,6 +310,10 @@ COUNTERS: dict[str, str] = {
 }
 
 
+#: Decimals of the seconds a record keeps of its ``t`` and ``mono`` stamps.
+STAMP_DECIMALS = 6
+
+
 @dataclasses.dataclass(frozen=True)
 class Event:
     """One journal record.  ``t`` is wall-clock (cross-process mergeable);
@@ -325,8 +329,8 @@ class Event:
     def to_dict(self) -> dict:
         return {
             "seq": self.seq,
-            "t": round(self.t, 6),
-            "mono": round(self.mono, 6),
+            "t": round(self.t, STAMP_DECIMALS),
+            "mono": round(self.mono, STAMP_DECIMALS),
             "type": self.type,
             **self.fields,
         }

@@ -16,6 +16,8 @@ import threading
 import time
 from collections import defaultdict
 
+from dsort_tpu_torch.utils.events import STAMP_DECIMALS
+
 #: Process-wide job ordinals: the first event a `Metrics` emits claims the
 #: next one, and every event of that job carries it as the ``job`` field.
 _JOB_ORDINALS = itertools.count(1)
@@ -72,7 +74,10 @@ class Metrics:
         fields.setdefault("job", self._job_ordinal())
         mono = None
         if self.journal is not None:
-            mono = self.journal.emit(etype, **fields).mono
+            # The taps get the stamp as the journal records it, so a replay
+            # of the journal derives what they did: a duration on a
+            # histogram bucket's bound lands in the same bucket both ways.
+            mono = round(self.journal.emit(etype, **fields).mono, STAMP_DECIMALS)
         if self.taps:
             if mono is None:
                 mono = time.monotonic()

@@ -8,6 +8,11 @@ directory on exit; `annotate` labels a host range (``PhaseTimer`` wraps
 every phase in ``dsort:<phase>``), so the phases line up against the
 kernels in that trace.
 
+A capture records every thread of the process while it runs, not only
+the one that opened it: the jobs run on scheduler lane and slice threads,
+which may have been started before the capture.  So a capture in a process
+that runs other work meanwhile holds that work's ranges too.
+
 Off-capture, `annotate` costs nothing: it records a range only while a
 `profile_trace` capture is active in this process, and imports nothing.
 A capture that cannot start is an error, never a silent no-op.
@@ -42,7 +47,7 @@ def profile_trace(logdir: str | None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     # The jobs run on scheduler lane and slice threads: record every thread
-    # started under the capture, not only this one.
+    # of the process, not only this one.
     from torch._C._profiler import _ExperimentalConfig
 
     prof = profile(

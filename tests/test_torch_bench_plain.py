@@ -222,7 +222,8 @@ def reference_parser():
 
 
 PORTED_COMMANDS = ["run", "serve", "batch", "terasort", "external", "coordinator", "worker",
-                   "validate", "gen", "report", "top", "bench", "fleet", "fleet-agent", "lint"]
+                   "validate", "gen", "report", "top", "bench", "fleet", "fleet-agent", "lint",
+                   "spec"]
 
 
 @pytest.mark.parametrize("cmd", PORTED_COMMANDS)

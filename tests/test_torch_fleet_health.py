@@ -23,7 +23,13 @@ from dsort_tpu_torch.obs.merge import merge_records
 from dsort_tpu_torch.utils.events import EventLog
 from dsort_tpu_torch.utils.metrics import PhaseTimer
 
-from test_torch_fleet import close_all, wait_for
+from test_torch_fleet import close_all, empty_ledgers, wait_for  # noqa: F401
+
+# The agents here are runner agents: what they advertise must come from
+# these tests' jobs alone.  Labels that earlier tests in this process left
+# in the first-call ledger would make locality routing keep both of a
+# test's jobs on one agent.
+pytestmark = pytest.mark.usefixtures("empty_ledgers")
 
 
 def _runner(seconds: float):

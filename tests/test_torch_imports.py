@@ -117,7 +117,8 @@ def test_the_analysis_subtree_is_scanned():
     contract `analysis.*` and test_torch_lint.py's blocked run hold that)."""
     names = {str(p.relative_to(ROOT)) for p in _modules()}
     for rel in ("analysis/core.py", "analysis/engine.py", "analysis/checkers/spmd.py",
-                "analysis/spmd/registry.py", "analysis/spec/machines.py", "utils/tracing.py"):
+                "analysis/spmd/registry.py", "analysis/spec/machines.py",
+                "analysis/spec/model.py", "utils/tracing.py"):
         assert f"dsort_tpu_torch/{rel}" in names, rel
 
 
@@ -181,6 +182,40 @@ def test_report_and_top_run_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "0 1"
     assert "why-slow verdict" in proc.stdout and "trace conformance" in proc.stdout
+
+
+_BLOCKED_SPEC = r"""
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "jaxlib", "dsort_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, _Block())
+from dsort_tpu_torch import cli
+rc = cli.main(["spec", "check", "--max-states", "2000"])
+rc2 = cli.main(["spec", "replay", "--fixture", "tests/data/spec/nonatomic_reserve.json"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "dsort_tpu"))
+assert not bad, bad
+print(rc, rc2)
+"""
+
+
+def test_spec_check_and_replay_run_with_torch_and_jax_blocked():
+    """``cli spec check`` and ``cli spec replay`` run with torch, JAX and the
+    JAX package unimportable: the model checker is control-plane state over
+    the port's numpy `ControlPolicy`."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SPEC], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "0 0"
+    assert "OK — no invariant violated" in proc.stdout
+    assert "reproduces no_double_run after 7 action(s)" in proc.stdout
 
 
 _BLOCKED_RUNTIME = r"""

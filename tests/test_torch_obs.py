@@ -208,6 +208,24 @@ def test_metrics_server_scrape_roundtrip():
             parse_prometheus_text(bad)
 
 
+def test_taps_get_the_journal_stamp_as_recorded():
+    """A live tap gets each event's ``mono`` as the journal records it, so
+    the live SLO histograms and a replay of the journal put a duration on a
+    bucket's bound in the same bucket."""
+    seen = []
+
+    class Tap:
+        def observe(self, etype, fields, mono, metrics):
+            seen.append(mono)
+
+    journal = EventLog()
+    m = Metrics(journal=journal)
+    m.taps.append(Tap())
+    for _ in range(50):
+        m.event("job_start", tenant="t")
+    assert seen == [e.to_dict()["mono"] for e in journal.events()]
+
+
 def test_scheduler_telemetry_slo_matches_journal_ground_truth():
     """`SpmdScheduler(telemetry=...)`: the live tap and a journal replay
     report the same per-tenant quantiles for all four stages."""

@@ -17,13 +17,18 @@ from dsort_tpu_torch.utils import tracing
 from dsort_tpu_torch.utils.metrics import Metrics, PhaseTimer
 
 
-def _ranges(trace_dir) -> set:
-    """The ``dsort:`` range names of the Chrome trace in ``trace_dir``."""
+def _ranges(trace_dir, tids=None) -> set:
+    """The ``dsort:`` range names of the Chrome trace in ``trace_dir``; with
+    ``tids``, only those of the threads of those native ids.  A capture
+    records every thread of the process, so a test that checks what its own
+    threads recorded reads them alone: a thread an earlier test left behind
+    may run a phase meanwhile."""
     with open(os.path.join(trace_dir, tracing.TRACE_NAME), encoding="utf-8") as f:
         trace = json.load(f)
     return {
         e["name"] for e in trace["traceEvents"]
         if e.get("ph") == "X" and str(e.get("name", "")).startswith("dsort:")
+        and (tids is None or e.get("tid") in tids)
     }
 
 
@@ -71,11 +76,14 @@ def test_annotate_and_phases_propagate_body_exceptions(tmp_path):
             with PhaseTimer(Metrics()).phase("p"):
                 raise RuntimeError("boom")
     # The failed region's trace is written too, with its phase.
-    assert _ranges(tmp_path / "t") == {"dsort:p"}
+    assert _ranges(tmp_path / "t", {threading.get_native_id()}) == {"dsort:p"}
 
 
 def test_profile_trace_captures_phases_of_threads_started_under_it(tmp_path):
+    tids = {threading.get_native_id()}
+
     def work():
+        tids.add(threading.get_native_id())
         timer = PhaseTimer(Metrics())
         with timer.phase("spmd_sort"):
             torch.sort(torch.arange(1000, 0, -1))
@@ -86,7 +94,8 @@ def test_profile_trace_captures_phases_of_threads_started_under_it(tmp_path):
         t = threading.Thread(target=work)
         t.start()
         t.join()
-    assert _ranges(tmp_path) == {"dsort:partition", "dsort:spmd_sort"}
+    assert len(tids) == 2
+    assert _ranges(tmp_path, tids) == {"dsort:partition", "dsort:spmd_sort"}
 
 
 @pytest.fixture(scope="module")
